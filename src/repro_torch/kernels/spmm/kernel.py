@@ -1,0 +1,97 @@
+"""Block-ELL SpMM on the card: the wrapper of kernel K1.
+
+K1 replaces the Pallas kernel ``spmm_blockell_kernel`` of
+``repro.kernels.spmm.kernel``.  The CUDA source is
+``csrc/spmm_blockell.cu`` (shared with K5, which adds the epilogue); its
+note says what bounds it on an H100 and how its design answers that.
+
+The wrapper runs the plain version (``ref.spmm_blockell_ref``) for CPU
+tensors and the kernel for CUDA tensors; there is no fallback between
+the two.  ``spmm_blockell_kernel.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused.epilogue import IDENTITY, Epilogue
+from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+
+ACT_CODES = {"identity": 0, "relu": 1, "leaky_relu": 2}
+MAX_BLOCK = 128  # largest bm / bn the kernels take (shared-memory tiles)
+
+
+def check_operand(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
+                  shape: Sequence[int], device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device`` (the kernels take nothing else)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_geometry(bm: int, bn: int, n: int) -> None:
+    if not (1 <= bm <= MAX_BLOCK and 1 <= bn <= MAX_BLOCK):
+        raise ValueError(f"block ({bm}, {bn}) outside 1..{MAX_BLOCK}")
+    if n % bn:
+        raise ValueError(f"H has {n} rows, not a multiple of bn={bn}")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {t.device} are neither CPU "
+                         "(plain version) nor CUDA (kernel)")
+
+
+def launch_blockell(indices, blocks, h, bias, res, epi: Epilogue,
+                    what: str) -> torch.Tensor:
+    """Check the operands and launch ``csrc/spmm_blockell.cu`` on the
+    current stream; returns Y [nbr*bm, D]."""
+    dev = h.device
+    nbr, w, bm, bn = blocks.shape
+    n, d = h.shape
+    check_geometry(bm, bn, n)
+    check_operand(indices, "indices", torch.int32, (nbr, w), dev)
+    check_operand(blocks, "blocks", torch.float32, (nbr, w, bm, bn), dev)
+    check_operand(h, "h", torch.float32, (n, d), dev)
+    if epi.has_bias:
+        check_operand(bias, "bias", torch.float32, (d,), dev)
+    if epi.has_residual:
+        check_operand(res, "residual", torch.float32, (nbr * bm, d), dev)
+    y = torch.empty((nbr * bm, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.entry("spmm_blockell")(
+            indices.data_ptr(), blocks.data_ptr(), h.data_ptr(),
+            bias.data_ptr() if epi.has_bias else None,
+            res.data_ptr() if epi.has_residual else None,
+            y.data_ptr(), nbr, w, bm, bn, d, ACT_CODES[epi.act],
+            float(epi.negative_slope),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, what)
+    return y
+
+
+def spmm_blockell_kernel(indices: torch.Tensor, blocks: torch.Tensor,
+                         h: torch.Tensor) -> torch.Tensor:
+    """K1: Y[nbr*bm, D] = A @ H with A in Block-ELL (``h`` padded to the
+    block-column grid)."""
+    if h.device.type == "cpu":
+        return spmm_blockell_ref(indices, blocks, h)
+    require_cuda(h, "spmm_blockell_kernel")
+    y = launch_blockell(indices, blocks, h, None, None, IDENTITY,
+                        "K1 spmm_blockell")
+    spmm_blockell_kernel.launches += 1
+    return y
+
+
+spmm_blockell_kernel.launches = 0

@@ -1,0 +1,161 @@
+"""``SparseMatrix`` — one sparse matrix carried in one or more storage
+forms (the port of the part of ``repro.sparse.matrix`` that GCN serving
+uses).
+
+Forms:
+
+  * ``"csr"``  — element-granular (row_ids, col_ids, values) tensors,
+    int32 indices;
+  * ``"ell"``  — :class:`repro_torch.core.formats.BlockELL`;
+  * ``"sell"`` — :class:`repro_torch.core.formats.SellCS`.
+
+A matrix may carry several forms at once, so the dispatcher can route
+any of their paths.  The planner reads the host-measured
+:class:`MatrixStats` and memoizes plans per matrix (``plan_cache``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.device import resolve_device
+from repro_torch.dispatch.stats import MatrixStats
+from repro_torch.sparse import paths
+from repro_torch.sparse.plan import PlanCache
+
+FORMATS = ("ell", "sell", "csr")
+
+
+class SparseMatrix:
+    """One sparse matrix, any carried storage format, dispatch-ready.
+
+    Construct with :meth:`from_dense`.
+    """
+
+    __slots__ = ("_forms", "shape", "stats", "_cache")
+
+    def __init__(self, forms: Dict[str, Any], shape: Tuple[int, int],
+                 stats: Optional[MatrixStats],
+                 cache: Optional[PlanCache] = None):
+        if not forms:
+            raise ValueError("SparseMatrix needs at least one form")
+        for name in forms:
+            if name not in FORMATS:
+                raise ValueError(
+                    f"unknown format {name!r}; expected one of {FORMATS}")
+        self._forms = dict(forms)
+        self.shape = (int(shape[0]), int(shape[1]))
+        self.stats = stats
+        self._cache = cache if cache is not None else PlanCache()
+
+    @classmethod
+    def from_dense(cls, a, *, formats: Tuple[str, ...] = ("ell", "csr"),
+                   block: Tuple[int, int] = (64, 64),
+                   ell_width: Optional[int] = None,
+                   device="cuda") -> "SparseMatrix":
+        """Build the named forms from a dense host (numpy) matrix."""
+        device = resolve_device(device)
+        a = np.asarray(a)
+        if a.ndim != 2:
+            raise ValueError(f"expected a 2-D matrix, got shape {a.shape}")
+        bm, bn = block
+        rows, cols = np.nonzero(a)
+        stats = MatrixStats.from_coords(a.shape, rows, cols, block_m=bm,
+                                        block_n=bn, nnz=len(rows))
+        forms = {name: _build_form(name, a, block, ell_width, device,
+                                   rows, cols) for name in formats}
+        return cls(forms, a.shape, stats)
+
+    # -- metadata -------------------------------------------------------------
+
+    @property
+    def format(self) -> str:
+        """Primary format (the first carried form)."""
+        return next(iter(self._forms))
+
+    @property
+    def formats(self) -> Tuple[str, ...]:
+        return tuple(self._forms)
+
+    def has_form(self, name: str) -> bool:
+        return name in self._forms
+
+    def form(self, name: str):
+        """The raw container of one carried form."""
+        if name not in self._forms:
+            raise ValueError(
+                f"matrix carries no {name!r} form (has {self.formats})")
+        return self._forms[name]
+
+    @property
+    def plan_cache(self) -> PlanCache:
+        """This instance's plan memo (per-matrix hit/miss counters)."""
+        return self._cache
+
+    @property
+    def device(self) -> torch.device:
+        form = self._forms[self.format]
+        return form[2].device if self.format == "csr" else form.device
+
+    @property
+    def block(self) -> Tuple[int, int]:
+        if self.stats is not None:
+            return (self.stats.block_m, self.stats.block_n)
+        return (64, 64)
+
+    def __repr__(self) -> str:
+        nnz = self.stats.nnz if self.stats is not None else "?"
+        return (f"SparseMatrix(shape={self.shape}, formats={self.formats}, "
+                f"nnz={nnz}, device={self.device})")
+
+    # -- conversions --------------------------------------------------------
+
+    def densify(self) -> torch.Tensor:
+        """Dense tensor on the matrix's device, from the primary form,
+        trimmed to the logical shape."""
+        name = self.format
+        form = self._forms[name]
+        m, n = self.shape
+        if name == "csr":
+            return paths.densify_elements(form[0], form[1], form[2], (m, n))
+        if name == "sell":
+            return paths.densify_sell(form)
+        return paths.densify_ell(form)[:m, :n]
+
+    def to_dense(self) -> np.ndarray:
+        """Host numpy densification."""
+        return self.densify().cpu().numpy()
+
+    def with_form(self, fmt: str) -> "SparseMatrix":
+        """This matrix plus one more carried form (a no-op when ``fmt`` is
+        already carried; host conversion otherwise).  The plan memo is
+        shared: plan keys include the candidate set."""
+        if fmt in self._forms:
+            return self
+        forms = dict(self._forms)
+        forms[fmt] = _build_form(fmt, self.to_dense(), self.block, None,
+                                 self.device)
+        return SparseMatrix(forms, self.shape, self.stats, cache=self._cache)
+
+
+def _build_form(name: str, a: np.ndarray, block: Tuple[int, int],
+                ell_width: Optional[int], device: torch.device,
+                rows: Optional[np.ndarray] = None,
+                cols: Optional[np.ndarray] = None):
+    bm, bn = block
+    if name == "ell":
+        return BlockELL.from_dense(a, bm, bn, ell_width=ell_width,
+                                   device=device)
+    if name == "sell":
+        return SellCS.from_dense(a, block=block, device=device)
+    if name == "csr":
+        if rows is None:
+            rows, cols = np.nonzero(a)
+        return (torch.from_numpy(rows.astype(np.int32)).to(device),
+                torch.from_numpy(cols.astype(np.int32)).to(device),
+                torch.from_numpy(np.ascontiguousarray(a[rows, cols]))
+                .to(device))
+    raise ValueError(f"unknown format {name!r}; expected one of {FORMATS}")

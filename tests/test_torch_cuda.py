@@ -1,0 +1,121 @@
+"""The CUDA kernels K1, K2, K5 and K6 on the card, held to their plain
+PyTorch versions (tolerance rtol 1e-4, atol 1e-5: f32 sums in another
+order), across block shapes, ragged edges and D-tile widths; and GCN
+serving on the card against the same engine on the CPU.
+
+These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
+on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.paper_gnn import SMOKE_CONFIG
+from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.data.pipeline import random_graph
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused.epilogue import Epilogue
+from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
+                                            spmm_blockell_epilogue_ref,
+                                            spmm_sell_epilogue_kernel,
+                                            spmm_sell_epilogue_ref)
+from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
+from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+from repro_torch.kernels.spmm.sell import (sell_tile_blocks,
+                                           spmm_sell_kernel,
+                                           spmm_sell_tiles_ref)
+from repro_torch.models.gnn import build_graph, init_gcn
+from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-4, atol=1e-5)
+BLOCKS = [(64, 64), (16, 16), (8, 16), (48, 32), (128, 128)]
+WIDTHS = [4, 16, 33, 64, 128]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _sparse(seed, m, n, density):
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random((m, n)) < density, rng.standard_normal((m, n)),
+                    0).astype(np.float32)
+
+
+def test_kernels_build(dev):
+    _build.build()
+    for name in _build.SOURCES:
+        assert _build.lib_path(name).exists()
+        assert _build.entry(name) is not None
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_blockell_kernels_match_plain(dev, block, d):
+    bm, bn = block
+    ell = BlockELL.from_dense(_sparse(d, 301, 277, 0.05), bm, bn,
+                              device=dev)
+    h = torch.randn(ell.shape[1], d, device=dev)
+    ops = (ell.indices, ell.blocks, h)
+    before = spmm_blockell_kernel.launches
+    torch.testing.assert_close(spmm_blockell_kernel(*ops),
+                               spmm_blockell_ref(*ops), **TOL)
+    assert spmm_blockell_kernel.launches == before + 1
+    for act in ("identity", "relu", "leaky_relu"):
+        epi = Epilogue(act=act, negative_slope=0.2, has_bias=True,
+                       has_residual=True)
+        tail = (torch.randn(d, device=dev),
+                torch.randn(ell.shape[0], d, device=dev))
+        torch.testing.assert_close(
+            spmm_blockell_epilogue_kernel(*ops, *tail, epi=epi),
+            spmm_blockell_epilogue_ref(*ops, *tail, epi=epi), **TOL)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_sell_kernels_match_plain(dev, block, d):
+    bm, _ = block
+    sell = SellCS.from_dense(_sparse(d, 301, 277, 0.004), block=block,
+                             device=dev)
+    n_pad = -(-277 // block[1]) * block[1]
+    ops = (sell.tile_rows, sell.tile_cols, sell_tile_blocks(sell),
+           torch.randn(n_pad, d, device=dev))
+    kw = dict(n_live_block_rows=sell.n_live_block_rows)
+    before = spmm_sell_kernel.launches
+    torch.testing.assert_close(spmm_sell_kernel(*ops, **kw),
+                               spmm_sell_tiles_ref(*ops, **kw), **TOL)
+    assert spmm_sell_kernel.launches == before + 1
+    for act in ("identity", "relu", "leaky_relu"):
+        epi = Epilogue(act=act, negative_slope=0.2, has_bias=True,
+                       has_residual=True)
+        tail = (torch.randn(d, device=dev),
+                torch.randn(sell.n_live_block_rows * bm, d, device=dev))
+        torch.testing.assert_close(
+            spmm_sell_epilogue_kernel(*ops, *tail, epi=epi, **kw),
+            spmm_sell_epilogue_ref(*ops, *tail, epi=epi, **kw), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_serving_on_card_matches_cpu(dev, kind, fuse):
+    rng = np.random.default_rng(0)
+    adj = (rng.random((256, 256)) < 0.1).astype(np.float32) \
+        if kind == "ell" else random_graph(256, 1.0, seed=1)
+    x = rng.standard_normal((256, SMOKE_CONFIG.in_features)) \
+        .astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        graph = build_graph(adj, SMOKE_CONFIG, device=device)
+        params = init_gcn(SMOKE_CONFIG, seed=3, bias=True, device=device)
+        eng = GNNServingEngine(params, graph, GNNServeConfig(fuse=fuse))
+        assert eng.plan.path == kind
+        assert eng.plan.use_kernel == (device == "cuda")
+        out[device] = eng.infer(x).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-5)
