@@ -19,7 +19,8 @@ Phases, each of which must pass or the script exits non-zero:
      Per graph: each kernel at the serving shapes against its plain
      version, timed beside it, beside ``torch.sparse.mm`` on the same A
      and H (a yardstick printed here, never called by the port) and
-     beside its bound from bytes and FP32 operations; then 8 requests
+     beside its bound from bytes and the FP32 operations its nonzeros
+     need; then 8 requests
      through ``GNNServingEngine(device="cuda")`` with the kernel launch
      counts set to 0 just before and read just after; the logits held to
      a dense f32 oracle (TF32 off); and one request with ``fuse=False``.
@@ -41,9 +42,11 @@ from pathlib import Path
 # outside the tensor cores.  Bounds are stated against these, at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
-# logits vs the dense oracle: |got - want| <= ORACLE_RTOL * max(1, max|want|)
+# logits vs the dense oracle, relative to the logits' own scale:
+# |got - want| <= ORACLE_RTOL * max|want| + ORACLE_ATOL
 # (f32 sums over up to 16384 terms, taken in another order)
 ORACLE_RTOL = 1e-4
+ORACLE_ATOL = 1e-7
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs its plain version
 REQUESTS = 8
 SEED = 0
@@ -132,6 +135,10 @@ def bound(nbytes: int, flops: int):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def oracle_tol(want) -> float:
+    return ORACLE_RTOL * float(want.abs().max()) + ORACLE_ATOL
 
 
 def check_close(torch, name, got, want, tol=KERNEL_TOL) -> float:
@@ -246,6 +253,9 @@ def kernel_rows(torch, port, graph, path):
                  "K6": port.fused.spmm_sell_epilogue_ref}
         specs = [("K6", cfg.hidden, relu), ("K2", cfg.n_classes, None)]
     a_lib = library_csr(torch, graph)
+    # the work this data needs: one multiply-add per nonzero of the
+    # blocks / tiles and column of H (the dense tile work is printed apart)
+    nnz = int((fixed[-1] != 0).sum())
     rows = {}
     for name, d, epi in specs:
         h = torch.randn(n_pad, d, device=dev, generator=gen)
@@ -254,7 +264,8 @@ def kernel_rows(torch, port, graph, path):
         y = port.wrappers[name](*args, **kwargs)
         err = check_close(torch, name, y, plain[name](*args, **kwargs))
         nbytes = sum(t.numel() * t.element_size() for t in (*fixed, h, y))
-        flops = 2 * slots * bm * bn * d + (0 if epi is None else y.numel())
+        flops = 2 * nnz * d + (0 if epi is None else y.numel())
+        tile_flops = 2 * slots * bm * bn * d
         row = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: port.wrappers[name](*args, **kwargs)),
@@ -266,8 +277,10 @@ def kernel_rows(torch, port, graph, path):
             f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
             f"torch.sparse.mm {row['library_ms']:.4f} ms | bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
-            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP; nonzeros "
-            f"alone need {2 * graph.stats.nnz * d / 1e9:.3f} GFLOP)")
+            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP for "
+            f"{nnz} nonzeros) | dense tile work {tile_flops / 1e9:.2f} "
+            f"GFLOP, {tile_flops / PEAK_FP32_FLOP_PER_S * 1e3:.4f} ms at "
+            "the FP32 peak")
         rows[name] = row
     return rows
 
@@ -342,22 +355,24 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     if counts != want_counts:
         raise AssertionError(f"graph ({label}) launch counts {counts}, "
                              f"expected {want_counts}")
-    worst = 0.0
+    worst, worst_tol, max_logit = 0.0, float("inf"), 0.0
     for x, got in zip(xs, outs):
         want = oracle_logits(torch, a_dense, params,
                              torch.from_numpy(x).to(dev))
         err = float((got - want).abs().max())
-        tol = ORACLE_RTOL * max(1.0, float(want.abs().max()))
+        tol = oracle_tol(want)
         if got.shape != (n, port.cfg.n_classes) \
                 or not bool(torch.isfinite(got).all()) or err > tol:
             raise AssertionError(f"graph ({label}) logits off the dense "
                                  f"oracle: max_abs_err {err:.3e} > {tol:.3e}")
-        worst = max(worst, err)
+        worst, worst_tol = max(worst, err), min(worst_tol, tol)
+        max_logit = max(max_logit, float(want.abs().max()))
     lat_sorted = sorted(lat)
     med = statistics.median(lat)
     p90 = lat_sorted[min(len(lat) - 1, int(0.9 * len(lat)))]
     log(f"graph ({label}) serving: logits vs dense f32 oracle (TF32 off) "
-        f"max_abs_err {worst:.3e} (tol {ORACLE_RTOL} x max(1, max|logit|)); "
+        f"max_abs_err {worst:.3e}, max|logit| {max_logit:.3e}, tightest "
+        f"tol {worst_tol:.3e} ({ORACLE_RTOL} x max|logit| + {ORACLE_ATOL}); "
         f"latency median {med:.3f} ms p90 {p90:.3f} ms "
         f"(all: {', '.join(f'{t:.3f}' for t in lat)}); "
         f"{n / med * 1e3:.0f} nodes/s")
@@ -373,8 +388,7 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     err = float((got - outs[0]).abs().max())
     log(f"graph ({label}) fuse=False: launches {ucounts}, max_abs_err vs "
         f"fused {err:.3e}")
-    if ucounts != want_u or err > ORACLE_RTOL * max(
-            1.0, float(outs[0].abs().max())):
+    if ucounts != want_u or err > oracle_tol(outs[0]):
         raise AssertionError(f"graph ({label}) fuse=False run off: "
                              f"{ucounts}, err {err:.3e}")
     profile_request(torch, eng, xs[0], label)

@@ -191,12 +191,6 @@ def _width_ladder(upto: int) -> np.ndarray:
     return np.array(vals, dtype=np.int64)
 
 
-def _quantize_width(w: int) -> int:
-    if w <= 0:
-        return 0
-    return int(_width_ladder(w)[-1])
-
-
 def _sell_row_order(row_nnz: np.ndarray, c: int, sigma: int,
                     width_slack: int = 0
                     ) -> Tuple[np.ndarray, np.ndarray]:

@@ -8,12 +8,13 @@
 //   Y[i-block, :] = act(sum_w blocks[i, w] @ H[idx[i, w]-block, :]
 //                       + bias + res[i-block, :])
 //
-// What bounds it on an H100: each CTA reads its block-row's W blocks once
-// per D-tile, so at D <= 64 (one D-tile) the blocks are read once and the
-// kernel is bound by the bytes of `blocks`; at D = 128 the FFMA work
-// (2 * nbr * W * bm * bn * D) over the 67 TFLOP/s FP32 rate is the larger
-// bound.  The design: the Pallas grid carried the sum across sequential
-// slot steps; here one CTA owns one (block-row, D-tile) and loops over the
+// What bounds it on an H100: the bytes of `blocks`, read once; the
+// nonzeros need far less arithmetic than that takes time.  This kernel
+// multiplies the blocks densely, so it also cannot beat the dense FFMA
+// work (2 * nbr * W * bm * bn * D over the 67 TFLOP/s FP32 rate, above
+// the byte time at D = 128), and each CTA reads its block-row's W blocks
+// once per D-tile (twice at D = 128).  The design: the Pallas grid
+// carried the sum across sequential slot steps; here one CTA owns one (block-row, D-tile) and loops over the
 // W slots itself, so no sum crosses CTAs (no atomics, deterministic).  A
 // and H tiles go through shared memory and each thread keeps an R x 4
 // register tile, four FFMA per shared-memory read of A.  Padding slots

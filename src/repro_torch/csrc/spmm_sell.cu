@@ -10,11 +10,12 @@
 // over the flat list of live tiles, with a compact output of n_live * bm
 // rows (the caller un-permutes it).
 //
-// What bounds it on an H100: every live tile is a dense bm x bn product,
-// so at D = 128 the FFMA work (2 * T * bm * bn * D) is the larger bound,
-// and at D = 16 the bytes of the T tiles.  A hyper-sparse graph leaves
-// only a few nonzeros in each 64 x 64 tile, so most of that work
-// multiplies zeros; this kernel computes what the TPU kernel computes.
+// What bounds it on an H100: the bytes of the T tiles, read once; the
+// nonzeros need far less arithmetic.  This kernel multiplies every live
+// tile densely (2 * T * bm * bn * D FFMA work, above the byte time at
+// D = 128), and a hyper-sparse graph leaves only a few nonzeros in each
+// 64 x 64 tile, so most of that work multiplies zeros; this kernel
+// computes what the TPU kernel computes.
 // The design: the Pallas kernel kept the output tile resident across
 // sequential grid steps and flushed when tile_rows changed.  CTAs run in
 // no order here, so the wrapper derives row_ptr (the first tile of each

@@ -71,20 +71,6 @@ def clear_log() -> None:
         _LOG.clear()
 
 
-def log_capacity() -> int:
-    return _LOG.maxlen or 0
-
-
-def set_log_capacity(capacity: int) -> None:
-    """Resize the plan ring (keeps the newest entries that still fit)."""
-    global _LOG
-    capacity = int(capacity)
-    if capacity < 1:
-        raise ValueError(f"log capacity must be >= 1, got {capacity}")
-    with _LOG_LOCK:
-        _LOG = collections.deque(_LOG, maxlen=capacity)
-
-
 def record_plan(plan: Plan) -> Plan:
     """Append a plan to the dispatch log."""
     with _LOG_LOCK:

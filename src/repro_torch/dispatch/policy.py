@@ -1,5 +1,4 @@
-"""Dispatch policy vocabulary and configuration (the port of
-``repro.dispatch.policy``).
+"""Dispatch policy vocabulary (the port of ``repro.dispatch.policy``).
 
 Execution paths:
 
@@ -13,8 +12,6 @@ the cost model in this port until the autotune slice lands), or one of
 the path names, which forces that path.
 """
 from __future__ import annotations
-
-import dataclasses
 
 PATH_ELL = "ell"
 PATH_SELL = "sell"
@@ -48,20 +45,3 @@ def normalize_policy(policy: str) -> str:
             f"unknown dispatch policy {policy!r}; expected one of "
             f"{POLICIES + tuple(_ALIASES)}")
     return p
-
-
-@dataclasses.dataclass(frozen=True)
-class DispatchConfig:
-    """Tunables of the dispatch layer.
-
-    Whether a path runs its CUDA kernel or its plain PyTorch version is
-    not configurable: it follows the device of the operands.  The
-    autotune fields are read by the autotune slice.
-    """
-
-    autotune_warmup: int = 1
-    autotune_iters: int = 3
-    buckets_per_decade: int = 2
-
-
-DEFAULT_CONFIG = DispatchConfig()

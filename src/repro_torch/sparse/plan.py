@@ -27,11 +27,6 @@ def plan_cache_stats() -> Dict[str, int]:
     return {"hits": GLOBAL_STATS.hits, "misses": GLOBAL_STATS.misses}
 
 
-def reset_plan_cache_stats() -> None:
-    GLOBAL_STATS.hits = 0
-    GLOBAL_STATS.misses = 0
-
-
 class PlanCache:
     """Mutable (key -> Plan) memo of one matrix."""
 
