@@ -7,23 +7,34 @@ Phases, each of which must pass or the script exits non-zero:
 
   1. Device and build: the card's name and power limit, torch and CUDA
      versions, and the build of every CUDA kernel from ``csrc/``.
-  2. Kernels against their plain PyTorch versions on the card, at one
-     ragged small shape (m not a multiple of bm, D = 16 and 48, bias and
-     residual on).
-  3. GCN node-classification serving at the paper's full width
+  2. Kernels against their plain PyTorch versions on the card, at ragged
+     small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
+     with bias and residual; K3/K4 at K = 2 and 48 (K3 with a weighted
+     mask); K7/K8 at dk = 2 and 48, D = 16 and 48, with edge-less rows
+     and all three edge activations.
+  3. On two graphs of N = 16384 nodes at the paper's full width
      (``CONFIG``: 256 -> 128 -> 128 -> 16, 64 x 64 blocks, numpy-seeded He
-     weights) on two graphs of N = 16384 nodes:
-       (a) uniform density 0.1, planned onto the Block-ELL path (K5, K1);
+     weights), each packed once and used by every path below:
+       (a) uniform density 0.1, planned onto the Block-ELL path
+           (GCN: K5, K1; SDDMM: K3; GAT: K7);
        (b) ``random_graph(16384, 16, seed=1)``, > 99 % sparse, planned
-           onto the SELL-C-σ path (K6, K2).
-     Per graph: each kernel at the serving shapes against its plain
-     version, timed beside it, beside ``torch.sparse.mm`` on the same A
-     and H (a yardstick printed here, never called by the port) and
-     beside its bound from bytes and the FP32 operations its nonzeros
-     need; then 8 requests
-     through ``GNNServingEngine(device="cuda")`` with the kernel launch
-     counts set to 0 just before and read just after; the logits held to
-     a dense f32 oracle (TF32 off); and one request with ``fuse=False``.
+           onto the SELL-C-σ path (GCN: K6, K2; SDDMM: K4; GAT: K8).
+     Per graph and path, each kernel at the serving shapes against its
+     plain version, timed beside it, beside one PyTorch call computing
+     the same function where there is one (``torch.sparse.mm`` for the
+     SpMM kernels, ``torch.sparse.sampled_addmm`` for the SDDMM ones;
+     printed here, never called by the port) and beside its bound from
+     bytes and the FP32 operations its nonzeros need.  Then, with the
+     kernel launch counts set to 0 just before and read just after:
+       GCN: 8 requests through ``GNNServingEngine``, logits held to a
+            dense f32 oracle (TF32 off), and one request with
+            ``fuse=False``;
+       SDDMM: one ``repro_torch.sparse.ops.sddmm`` call at K = 2, its
+            plan and values held to a dense f32 oracle of A ⊙ (B C);
+       GAT: 8 requests through ``GNNServingEngine(model="gat")``, logits
+            held to a dense f32 masked-softmax oracle, and one request
+            with ``fuse=False`` (no kernel: it samples on the csr
+            pattern) held to the fused logits.
   4. A JSON line of the kernels, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
@@ -42,9 +53,10 @@ from pathlib import Path
 # outside the tensor cores.  Bounds are stated against these, at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
-# logits vs the dense oracle, relative to the logits' own scale:
-# |got - want| <= ORACLE_RTOL * max|want| + ORACLE_ATOL
-# (f32 sums over up to 16384 terms, taken in another order)
+# logits (and SDDMM values) vs the dense oracle, relative to their own
+# scale: |got - want| <= ORACLE_RTOL * max|want| + ORACLE_ATOL (f32 sums
+# over up to 16384 terms, and for GAT the softmax's exp, taken in
+# another order)
 ORACLE_RTOL = 1e-4
 ORACLE_ATOL = 1e-7
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs its plain version
@@ -63,7 +75,17 @@ KERNELS = {
            "src/repro/kernels/fused/spmm.py:82"),
     "K6": ("spmm_sell_epilogue_kernel", "src/repro_torch/csrc/spmm_sell.cu",
            "src/repro/kernels/fused/spmm.py:207"),
+    "K3": ("sddmm_blockcoo_kernel", "src/repro_torch/csrc/sddmm.cu",
+           "src/repro/kernels/sddmm/kernel.py:52"),
+    "K4": ("sddmm_sell_kernel", "src/repro_torch/csrc/sddmm.cu",
+           "src/repro/kernels/sddmm/sell.py:58"),
+    "K7": ("fused_attn_blockell_kernel",
+           "src/repro_torch/csrc/fused_attention.cu",
+           "src/repro/kernels/fused/attention.py:99"),
+    "K8": ("fused_attn_sell_kernel", "src/repro_torch/csrc/fused_attention.cu",
+           "src/repro/kernels/fused/attention.py:281"),
 }
+ACTS = ("identity", "relu", "leaky_relu")
 
 
 def log(*args):
@@ -85,25 +107,39 @@ class Port:
         from repro_torch.configs import paper_gnn
         from repro_torch.core.formats import BlockELL, SellCS
         from repro_torch.data.pipeline import random_graph
+        from repro_torch.dispatch import dispatcher
+        from repro_torch.core.formats import BlockCOO
         from repro_torch.kernels import _build
+        from repro_torch.kernels.fused import attention
         from repro_torch.kernels.fused import spmm as fused
         from repro_torch.kernels.fused.epilogue import Epilogue
+        from repro_torch.kernels.sddmm import kernel as sddmm_kernel
+        from repro_torch.kernels.sddmm import ref as sddmm_ref
+        from repro_torch.kernels.sddmm import sell as sddmm_sell
         from repro_torch.kernels.spmm import kernel, ref, sell
         from repro_torch.models import gnn
         from repro_torch.serve import engine
+        from repro_torch.sparse import ops, paths
 
         self.cfg = paper_gnn.CONFIG
         self.random_graph = random_graph
-        self.BlockELL, self.SellCS = BlockELL, SellCS
+        self.BlockELL, self.SellCS, self.BlockCOO = BlockELL, SellCS, BlockCOO
         self.build = _build
         self.fused, self.ref, self.sell = fused, ref, sell
+        self.attention = attention
+        self.sddmm_ref, self.sddmm_sell = sddmm_ref, sddmm_sell
         self.Epilogue = Epilogue
         self.gnn, self.engine = gnn, engine
+        self.ops, self.paths, self.dispatcher = ops, paths, dispatcher
         self.wrappers = {
             "K1": kernel.spmm_blockell_kernel,
             "K2": sell.spmm_sell_kernel,
             "K5": fused.spmm_blockell_epilogue_kernel,
             "K6": fused.spmm_sell_epilogue_kernel,
+            "K3": sddmm_kernel.sddmm_blockcoo_kernel,
+            "K4": sddmm_sell.sddmm_sell_kernel,
+            "K7": attention.fused_attn_blockell_kernel,
+            "K8": attention.fused_attn_sell_kernel,
         }
 
     def reset_counts(self):
@@ -198,6 +234,72 @@ def ragged_checks(torch, np, port):
             + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
 
+def ragged_checks_sddmm_attention(torch, np, port):
+    """Phase 2 for K3/K4 (K = 2 and 48) and K7/K8 (dk = 2 and 48, D = 16
+    and 48, edge-less rows, every edge activation) at m = 1000."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 1)
+    m, bm = 1000, 64
+    n_pad = -(-m // bm) * bm
+
+    def sparse(density):
+        a = np.where(rng.random((m, m)) < density,
+                     rng.standard_normal((m, m)), 0).astype(np.float32)
+        a[[3, 500, 999]] = 0.0  # edge-less rows
+        return a
+
+    a_blk, a_sell = sparse(0.05), sparse(0.003)
+    coo = port.BlockCOO.from_dense(a_blk, bm, bm, device=dev)  # weighted
+    ell = port.BlockELL.from_dense(a_blk, bm, bm, device=dev)
+    sell = port.SellCS.from_dense(a_sell, block=(bm, bm), device=dev)
+    live = sell.n_live_block_rows
+    pattern = (port.sell.sell_tile_blocks(sell) != 0).float()
+    for k in (2, 48):
+        ops = (coo.rows, coo.cols, coo.blocks,
+               torch.randn(n_pad, k, device=dev),
+               torch.randn(k, n_pad, device=dev))
+        errs = {"K3": check_close(torch, f"K3 ragged k={k}",
+                                  port.wrappers["K3"](*ops),
+                                  port.sddmm_ref.sddmm_blockcoo_ref(*ops))}
+        ops = (sell.tile_rows, sell.tile_cols, pattern,
+               torch.randn(live * bm, k, device=dev),
+               torch.randn(k, n_pad, device=dev))
+        errs["K4"] = check_close(
+            torch, f"K4 ragged k={k}", port.wrappers["K4"](*ops),
+            port.sddmm_sell.sddmm_sell_tiles_ref(*ops))
+        log(f"ragged m={m} k={k} (COO blocks {coo.nnzb}, SELL tiles "
+            f"{sell.n_tiles}): max_abs_err "
+            + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    att = port.attention
+    for dk in (2, 48):
+        for d in (16, 48):
+            errs = {"K7": 0.0, "K8": 0.0}
+            for act in ACTS:
+                kw = dict(act=act, slope=0.2)
+                ops = (ell.indices, ell.blocks,
+                       torch.randn(n_pad, dk, device=dev),
+                       torch.randn(dk, n_pad, device=dev),
+                       torch.randn(n_pad, d, device=dev))
+                got = port.wrappers["K7"](*ops, **kw)
+                err = check_close(torch, f"K7 ragged dk={dk} d={d} {act}",
+                                  got, att.fused_attn_blockell_ref(*ops, **kw))
+                if bool(got[[3, 500, 999]].any()):
+                    raise AssertionError("K7: edge-less rows are not 0")
+                errs["K7"] = max(errs["K7"], err)
+                ops = (sell.tile_rows, sell.tile_cols, pattern,
+                       torch.randn(live * bm, dk, device=dev),
+                       torch.randn(dk, n_pad, device=dev),
+                       torch.randn(n_pad, d, device=dev))
+                kw["n_live_block_rows"] = live
+                errs["K8"] = max(errs["K8"], check_close(
+                    torch, f"K8 ragged dk={dk} d={d} {act}",
+                    port.wrappers["K8"](*ops, **kw),
+                    att.fused_attn_sell_tiles_ref(*ops, **kw)))
+            log(f"ragged m={m} dk={dk} d={d} ({', '.join(ACTS)}; edge-less "
+                "rows exactly 0): max_abs_err "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+
+
 def normalized_dense(np, adj):
     """Â = D^-1/2 (A + I) D^-1/2, written out here for the oracle."""
     a = adj + np.eye(adj.shape[0], dtype=np.float32)
@@ -225,8 +327,9 @@ def library_csr(torch, graph):
 
 
 def kernel_rows(torch, port, graph, path):
-    """Each kernel of this graph's path at the serving shapes: held to its
-    plain version, timed beside it, ``torch.sparse.mm`` and its bound."""
+    """Each SpMM kernel of this graph's path at the serving shapes: held to
+    its plain version, timed beside it, ``torch.sparse.mm`` and its
+    bound."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = port.cfg
@@ -261,27 +364,20 @@ def kernel_rows(torch, port, graph, path):
         h = torch.randn(n_pad, d, device=dev, generator=gen)
         args = (*fixed, h) if epi is None else (*fixed, h, None, None)
         kwargs = dict(kw) if epi is None else dict(kw, epi=epi)
-        y = port.wrappers[name](*args, **kwargs)
-        err = check_close(torch, name, y, plain[name](*args, **kwargs))
-        nbytes = sum(t.numel() * t.element_size() for t in (*fixed, h, y))
-        flops = 2 * nnz * d + (0 if epi is None else y.numel())
+        n_out = (fixed[0].shape[0] * bm if path == "ell"
+                 else kw["n_live_block_rows"] * bm) * d
+        nbytes = sum(t.numel() * t.element_size() for t in (*fixed, h)) \
+            + n_out * 4
         tile_flops = 2 * slots * bm * bn * d
-        row = dict(
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: port.wrappers[name](*args, **kwargs)),
-            plain_ms=time_ms(torch, lambda: plain[name](*args, **kwargs)),
-            library_ms=time_ms(
-                torch, lambda: torch.sparse.mm(a_lib, h[: graph.n_nodes])))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
-        log(f"{name} [{shape} D={d}]: max_abs_err {err:.3e} | kernel "
-            f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-            f"torch.sparse.mm {row['library_ms']:.4f} ms | bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
-            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP for "
-            f"{nnz} nonzeros) | dense tile work {tile_flops / 1e9:.2f} "
-            f"GFLOP, {tile_flops / PEAK_FP32_FLOP_PER_S * 1e3:.4f} ms at "
-            "the FP32 peak")
-        rows[name] = row
+        rows[name] = measure(
+            torch, name, lambda: port.wrappers[name](*args, **kwargs),
+            lambda: plain[name](*args, **kwargs),
+            lambda: torch.sparse.mm(a_lib, h[: graph.n_nodes]), nbytes,
+            2 * nnz * d + (0 if epi is None else n_out),
+            f"{shape} D={d}; {nnz} nonzeros; dense tile work "
+            f"{tile_flops / 1e9:.2f} GFLOP, "
+            f"{tile_flops / PEAK_FP32_FLOP_PER_S * 1e3:.4f} ms at the FP32 "
+            "peak; library: torch.sparse.mm")
     return rows
 
 
@@ -317,65 +413,95 @@ def profile_request(torch, eng, x, label):
         + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
 
 
-def serve_graph(torch, np, port, label, adj, want_path, expect):
-    """Phase 3 for one graph; returns this graph's kernel rows and the
-    launch counts of its 8 served requests."""
-    dev = torch.device(DEVICE)
-    n = adj.shape[0]
-    t0 = time.perf_counter()
-    graph = port.gnn.build_graph(adj, port.cfg, device=DEVICE)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    params = port.gnn.init_gcn(port.cfg, seed=SEED, device=DEVICE)
-    eng = port.engine.GNNServingEngine(params, graph)
-    report = eng.dispatch_report()
-    log(f"graph ({label}): N={n} nnz={graph.stats.nnz} sparsity "
-        f"{graph.stats.sparsity:.5f} forms={graph.adj.formats} host packing "
-        f"{pack_s:.2f} s; plan {report['path']} ({report['reason']})")
-    if eng.plan.path != want_path:
-        raise AssertionError(f"graph ({label}) planned {eng.plan.path!r}, "
-                             f"expected {want_path!r}")
-    rows = kernel_rows(torch, port, graph, want_path)
+def expected(port, per_call, calls):
+    """Launch counts over every wrapper: ``per_call`` times ``calls``."""
+    return {k: per_call.get(k, 0) * calls for k in port.wrappers}
 
-    a_dense = torch.from_numpy(normalized_dense(np, adj)).to(dev)
-    xs = [np.random.default_rng(SEED + i).standard_normal(
-        (n, port.cfg.in_features)).astype(np.float32)
-        for i in range(REQUESTS)]
-    torch.cuda.synchronize()
-    port.reset_counts()
-    lat, outs = [], []
+
+def measure(torch, name, run, plain, library, nbytes, flops, what):
+    """One kernel row: held to its plain version, timed beside it and
+    beside the library call (``library`` None: there is none), with the
+    bound from ``nbytes`` and ``flops``."""
+    err = check_close(torch, name, run(), plain())
+    row = dict(max_abs_err=err, ms=time_ms(torch, run),
+               plain_ms=time_ms(torch, plain),
+               library_ms=None if library is None else time_ms(torch, library))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    lib = "no single PyTorch call" if library is None \
+        else f"{row['library_ms']:.4f} ms"
+    log(f"{name} [{what}]: max_abs_err {err:.3e} | kernel {row['ms']:.4f} "
+        f"ms | plain {row['plain_ms']:.4f} ms | library {lib} | bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e9:.3f} "
+        f"GB, {flops / 1e9:.3f} GFLOP)")
+    return row
+
+
+def serve_requests(torch, eng, xs):
+    """Each request through ``eng.infer``, host clock around it plus a
+    sync; returns the outputs and the latencies in ms."""
+    outs, lat = [], []
     for x in xs:
         t0 = time.perf_counter()
         outs.append(eng.infer(x))
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    counts = port.counts()
-    log(f"graph ({label}) launches over {REQUESTS} requests: {counts}")
-    want_counts = {k: v * REQUESTS for k, v in expect.items()}
-    if counts != want_counts:
-        raise AssertionError(f"graph ({label}) launch counts {counts}, "
-                             f"expected {want_counts}")
-    worst, worst_tol, max_logit = 0.0, float("inf"), 0.0
-    for x, got in zip(xs, outs):
-        want = oracle_logits(torch, a_dense, params,
-                             torch.from_numpy(x).to(dev))
+    return outs, lat
+
+
+def latency_text(lat, n):
+    med = statistics.median(lat)
+    p90 = sorted(lat)[min(len(lat) - 1, int(0.9 * len(lat)))]
+    return (f"latency median {med:.3f} ms p90 {p90:.3f} ms (all: "
+            f"{', '.join(f'{t:.3f}' for t in lat)}); {n / med * 1e3:.0f} "
+            "nodes/s")
+
+
+def hold_to_oracle(torch, label, outs, oracle, shape):
+    """Every output finite, of ``shape`` and within ``oracle_tol`` of the
+    oracle; returns (worst error, tightest tolerance, max|want|)."""
+    worst, worst_tol, top = 0.0, float("inf"), 0.0
+    for i, got in enumerate(outs):
+        want = oracle(i)
         err = float((got - want).abs().max())
         tol = oracle_tol(want)
-        if got.shape != (n, port.cfg.n_classes) \
-                or not bool(torch.isfinite(got).all()) or err > tol:
-            raise AssertionError(f"graph ({label}) logits off the dense "
-                                 f"oracle: max_abs_err {err:.3e} > {tol:.3e}")
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()) \
+                or err > tol:
+            raise AssertionError(f"graph ({label}) off the dense oracle: "
+                                 f"max_abs_err {err:.3e} > {tol:.3e}")
         worst, worst_tol = max(worst, err), min(worst_tol, tol)
-        max_logit = max(max_logit, float(want.abs().max()))
-    lat_sorted = sorted(lat)
-    med = statistics.median(lat)
-    p90 = lat_sorted[min(len(lat) - 1, int(0.9 * len(lat)))]
-    log(f"graph ({label}) serving: logits vs dense f32 oracle (TF32 off) "
-        f"max_abs_err {worst:.3e}, max|logit| {max_logit:.3e}, tightest "
-        f"tol {worst_tol:.3e} ({ORACLE_RTOL} x max|logit| + {ORACLE_ATOL}); "
-        f"latency median {med:.3f} ms p90 {p90:.3f} ms "
-        f"(all: {', '.join(f'{t:.3f}' for t in lat)}); "
-        f"{n / med * 1e3:.0f} nodes/s")
+        top = max(top, float(want.abs().max()))
+    return worst, worst_tol, top
+
+
+def gcn_phase(torch, port, graph, a_dense, label, want_path, expect, xs):
+    """GCN serving on one graph; returns its kernel rows with launches."""
+    dev = torch.device(DEVICE)
+    n = graph.n_nodes
+    params = port.gnn.init_gcn(port.cfg, seed=SEED, device=DEVICE)
+    eng = port.engine.GNNServingEngine(params, graph)
+    report = eng.dispatch_report()
+    log(f"graph ({label}) GCN plan {report['path']} ({report['reason']})")
+    if eng.plan.path != want_path:
+        raise AssertionError(f"graph ({label}) planned {eng.plan.path!r}, "
+                             f"expected {want_path!r}")
+    rows = kernel_rows(torch, port, graph, want_path)
+    torch.cuda.synchronize()
+    port.reset_counts()
+    outs, lat = serve_requests(torch, eng, xs)
+    counts = port.counts()
+    log(f"graph ({label}) GCN launches over {REQUESTS} requests: {counts}")
+    if counts != expected(port, expect, REQUESTS):
+        raise AssertionError(f"graph ({label}) GCN launch counts {counts}, "
+                             f"expected {expected(port, expect, REQUESTS)}")
+    worst, worst_tol, top = hold_to_oracle(
+        torch, label, outs,
+        lambda i: oracle_logits(torch, a_dense, params,
+                                torch.from_numpy(xs[i]).to(dev)),
+        (n, port.cfg.n_classes))
+    log(f"graph ({label}) GCN serving: logits vs dense f32 oracle (TF32 "
+        f"off) max_abs_err {worst:.3e}, max|logit| {top:.3e}, tightest tol "
+        f"{worst_tol:.3e} ({ORACLE_RTOL} x max|logit| + {ORACLE_ATOL}); "
+        + latency_text(lat, n))
 
     unfused = port.engine.GNNServingEngine(
         params, graph, port.engine.GNNServeConfig(fuse=False))
@@ -384,18 +510,219 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     torch.cuda.synchronize()
     ucounts = port.counts()
     plain_kernel = "K1" if want_path == "ell" else "K2"
-    want_u = {k: (3 if k == plain_kernel else 0) for k in ucounts}
     err = float((got - outs[0]).abs().max())
-    log(f"graph ({label}) fuse=False: launches {ucounts}, max_abs_err vs "
-        f"fused {err:.3e}")
-    if ucounts != want_u or err > oracle_tol(outs[0]):
-        raise AssertionError(f"graph ({label}) fuse=False run off: "
+    log(f"graph ({label}) GCN fuse=False: launches {ucounts}, max_abs_err "
+        f"vs fused {err:.3e}")
+    if ucounts != expected(port, {plain_kernel: 3}, 1) \
+            or err > oracle_tol(outs[0]):
+        raise AssertionError(f"graph ({label}) GCN fuse=False run off: "
                              f"{ucounts}, err {err:.3e}")
-    profile_request(torch, eng, xs[0], label)
-    log(f"graph ({label}) peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_request(torch, eng, xs[0], f"{label}, GCN")
     for name in rows:
         rows[name]["launches"] = counts[name]
+    return rows
+
+
+def sddmm_phase(torch, port, graph, a_dense, label, want_path):
+    """The SDDMM entry point at K = 2 on one graph; returns its kernel
+    row (K3 on the ell path, K4 on the sell path) with launches."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, k = graph.n_nodes, 2
+    b = torch.randn(n, k, device=dev, generator=gen)
+    c = torch.randn(k, n, device=dev, generator=gen)
+    paths = port.paths
+    # the kernel at the operands the path hands it (autodiff.sample_exec)
+    if want_path == "ell":
+        name, plain = "K3", port.sddmm_ref.sddmm_blockcoo_ref
+        coo = paths.ell_to_coo(graph.adj.form("ell"))
+        args = (coo.rows, coo.cols, torch.ones_like(coo.blocks),
+                paths.pad_rows(b, coo.shape[0]),
+                paths.pad_cols(c, coo.shape[1]).contiguous())
+        what = f"nnzb={coo.nnzb} all-ones blocks {coo.bm}x{coo.bn} K={k}"
+    else:
+        name, plain = "K4", port.sddmm_sell.sddmm_sell_tiles_ref
+        sell = graph.adj.form("sell")
+        n_pad = -(-n // sell.bn) * sell.bn
+        args = (sell.tile_rows, sell.tile_cols,
+                (sell.tile_slot_map < sell.n_slots).float(),
+                torch.cat([b, b.new_zeros((1, k))])[sell.perm].contiguous(),
+                paths.pad_cols(c, n_pad).contiguous())
+        what = (f"T={sell.n_tiles} live_block_rows={sell.n_live_block_rows} "
+                f"block={sell.bm}x{sell.bn} K={k}")
+    nnz = int((args[2] != 0).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + args[2].numel() * 4  # the output tiles
+    a_lib = library_csr(torch, graph)
+    row = measure(
+        torch, name, lambda: port.wrappers[name](*args), lambda: plain(*args),
+        lambda: torch.sparse.sampled_addmm(a_lib, b, c, beta=0.0), nbytes,
+        2 * k * nnz + nnz, f"{what}; sampled entries {nnz}")
+    del args
+
+    cand = port.gnn.graph_candidates(graph.adj)
+    torch.cuda.synchronize()
+    port.reset_counts()
+    s = port.ops.sddmm(graph.adj, b, c, candidates=cand)
+    torch.cuda.synchronize()
+    counts = port.counts()
+    plan = port.dispatcher.last_plan("sddmm")
+    log(f"graph ({label}) SDDMM K={k}: plan {plan.path} ({plan.reason}); "
+        f"launches {counts}")
+    if plan.path != want_path or s.formats != (want_path,) \
+            or counts != expected(port, {name: 1}, 1):
+        raise AssertionError(f"graph ({label}) SDDMM ran {plan.path!r} with "
+                             f"{counts}, expected {want_path!r} and {name} x1")
+    worst, tol, top = hold_to_oracle(
+        torch, label, [s.densify()], lambda _: a_dense * (b @ c), (n, n))
+    del s
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        port.ops.sddmm(graph.adj, b, c, candidates=cand)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    log(f"graph ({label}) SDDMM values vs dense f32 oracle A ⊙ (B C): "
+        f"max_abs_err {worst:.3e}, max|value| {top:.3e}, tol {tol:.3e}; "
+        f"entry point median {statistics.median(lat):.3f} ms over 5 calls "
+        f"(all: {', '.join(f'{t:.3f}' for t in lat)})")
+    row["launches"] = counts[name]
+    return {name: row}
+
+
+def gat_oracle(torch, pattern, params, x, chunk=2048):
+    """Dense f32 GAT (the counterpart of ``fused_attn_dense``, elu between
+    layers), row chunk by row chunk: scores s_src[i] + s_dst[j], leaky
+    relu 0.2, a softmax over each row's edges (exactly 0 off the
+    pattern), then the weighted sum of h."""
+    h = x
+    n_layers = len(params["w"])
+    for i, w in enumerate(params["w"]):
+        h = h @ w
+        s_src = (h @ params["a_src"][i])[:, 0]
+        s_dst = (h @ params["a_dst"][i])[:, 0]
+        out = torch.empty_like(h)
+        for r0 in range(0, h.shape[0], chunk):
+            mask = pattern[r0:r0 + chunk]
+            e = torch.nn.functional.leaky_relu(
+                s_src[r0:r0 + chunk, None] + s_dst[None, :], 0.2)
+            e = torch.where(mask, e, -1e30)
+            p = torch.where(mask, torch.exp(e - e.amax(1, keepdim=True)),
+                            0.0)
+            out[r0:r0 + chunk] = (p / p.sum(1, keepdim=True).clamp_min(
+                1e-12)) @ h
+        h = torch.nn.functional.elu(out) if i < n_layers - 1 else out
+    return h
+
+
+def gat_phase(torch, port, graph, pattern, label, want_path, xs):
+    """GAT serving on one graph; returns its kernel row (K7 on the ell
+    path, K8 on the sell path) with launches."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, cfg = graph.n_nodes, port.cfg
+    params = port.gnn.init_gat(cfg, seed=SEED, device=DEVICE)
+    eng = port.engine.GNNServingEngine(
+        params, graph, port.engine.GNNServeConfig(model="gat"))
+    report = eng.dispatch_report()
+    log(f"graph ({label}) GAT plan {report['plan_op']} -> {report['path']} "
+        f"({report['reason']})")
+    if (eng.plan.path, eng.plan.op) != (want_path, "fused_attn"):
+        raise AssertionError(f"graph ({label}) GAT planned {eng.plan.op} -> "
+                             f"{eng.plan.path!r}, expected {want_path!r}")
+    att, dk, d = port.attention, 2, cfg.hidden
+    kw = dict(act="leaky_relu", slope=0.2)
+    if want_path == "ell":
+        name, plain = "K7", att.fused_attn_blockell_ref
+        ell = graph.adj.form("ell")
+        topo, n_rows, n_pad = (ell.indices, ell.blocks), ell.shape[0], \
+            ell.shape[1]
+        what = f"nbr={ell.n_block_rows} W={ell.ell_width} block=" \
+            f"{ell.bm}x{ell.bn} dk={dk} D={d}"
+    else:
+        name, plain = "K8", att.fused_attn_sell_tiles_ref
+        sell = graph.adj.form("sell")
+        kw["n_live_block_rows"] = sell.n_live_block_rows
+        topo = (sell.tile_rows, sell.tile_cols,
+                (port.sell.sell_tile_blocks(sell) != 0).float())
+        n_rows = sell.n_live_block_rows * sell.bm
+        n_pad = -(-n // sell.bn) * sell.bn
+        what = (f"T={sell.n_tiles} live_block_rows={sell.n_live_block_rows} "
+                f"block={sell.bm}x{sell.bn} dk={dk} D={d}")
+    args = topo + (torch.randn(n_rows, dk, device=dev, generator=gen),
+                   torch.randn(dk, n_pad, device=dev, generator=gen),
+                   torch.randn(n_pad, d, device=dev, generator=gen))
+    nnz = int((topo[-1] != 0).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + n_rows * d * 4  # the output
+    # per nonzero: dk + D multiply-adds, and the act, max, exp and sum
+    flops = nnz * (2 * dk + 2 * d + 4)
+    row = measure(torch, name, lambda: port.wrappers[name](*args, **kw),
+                  lambda: plain(*args, **kw), None, nbytes, flops,
+                  f"{what}; nonzeros {nnz}")
+    del args, topo
+
+    torch.cuda.synchronize()
+    port.reset_counts()
+    outs, lat = serve_requests(torch, eng, xs)
+    counts = port.counts()
+    log(f"graph ({label}) GAT launches over {REQUESTS} requests: {counts}")
+    if counts != expected(port, {name: 3}, REQUESTS):
+        raise AssertionError(f"graph ({label}) GAT launch counts {counts}, "
+                             f"expected {expected(port, {name: 3}, REQUESTS)}")
+    worst, worst_tol, top = hold_to_oracle(
+        torch, label, outs,
+        lambda i: gat_oracle(torch, pattern, params,
+                             torch.from_numpy(xs[i]).to(dev)),
+        (n, cfg.n_classes))
+    log(f"graph ({label}) GAT serving: logits vs dense f32 masked-softmax "
+        f"oracle (TF32 off) max_abs_err {worst:.3e}, max|logit| {top:.3e}, "
+        f"tightest tol {worst_tol:.3e} ({ORACLE_RTOL} x max|logit| + "
+        f"{ORACLE_ATOL}); " + latency_text(lat, n))
+
+    unfused = port.engine.GNNServingEngine(
+        params, graph, port.engine.GNNServeConfig(model="gat", fuse=False))
+    port.reset_counts()
+    t0 = time.perf_counter()
+    got = unfused.infer(xs[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ucounts = port.counts()
+    err = float((got - outs[0]).abs().max())
+    log(f"graph ({label}) GAT fuse=False ({wall:.3f} ms; paths "
+        f"{sorted({p.path for p in port.dispatcher.dispatch_log()[-6:]})}): "
+        f"launches {ucounts}, max_abs_err vs fused {err:.3e}")
+    if ucounts != expected(port, {}, 1) or err > oracle_tol(outs[0]):
+        raise AssertionError(f"graph ({label}) GAT fuse=False run off: "
+                             f"{ucounts}, err {err:.3e}")
+    profile_request(torch, eng, xs[0], f"{label}, GAT")
+    row["launches"] = counts[name]
+    return {name: row}
+
+
+def serve_graph(torch, np, port, label, adj, want_path, expect):
+    """Phase 3 for one graph: pack it once, then GCN serving, the SDDMM
+    entry point and GAT serving on it; returns the kernel rows."""
+    dev = torch.device(DEVICE)
+    n = adj.shape[0]
+    t0 = time.perf_counter()
+    graph = port.gnn.build_graph(adj, port.cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"graph ({label}): N={n} nnz={graph.stats.nnz} sparsity "
+        f"{graph.stats.sparsity:.5f} forms={graph.adj.formats} host packing "
+        f"{time.perf_counter() - t0:.2f} s")
+    a_dense = torch.from_numpy(normalized_dense(np, adj)).to(dev)
+    xs = [np.random.default_rng(SEED + i).standard_normal(
+        (n, port.cfg.in_features)).astype(np.float32)
+        for i in range(REQUESTS)]
+    rows = gcn_phase(torch, port, graph, a_dense, label, want_path, expect,
+                     xs)
+    rows.update(sddmm_phase(torch, port, graph, a_dense, label, want_path))
+    pattern = a_dense != 0
+    del a_dense
+    rows.update(gat_phase(torch, port, graph, pattern, label, want_path, xs))
+    log(f"graph ({label}) peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return rows
 
 
@@ -436,6 +763,7 @@ def main() -> int:
             + " | ".join(usage))
 
     ragged_checks(torch, np, port)
+    ragged_checks_sddmm_attention(torch, np, port)
 
     n = N_NODES
     rng = np.random.default_rng(SEED)
@@ -451,7 +779,7 @@ def main() -> int:
                             "sell", {"K1": 0, "K2": 1, "K5": 0, "K6": 2}))
 
     kernels = []
-    for name in ("K1", "K2", "K5", "K6"):
+    for name in sorted(KERNELS):
         fn, source, replaces = KERNELS[name]
         row = rows[name]
         kernels.append({

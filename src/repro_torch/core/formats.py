@@ -8,6 +8,8 @@ device fields are torch tensors on the requested device.
   * ``BlockELL`` — A tiled into (bm x bn) blocks; each block-row keeps its
                    nonzero blocks left-aligned and is padded to one width
                    W with zero blocks whose index repeats a valid column.
+  * ``BlockCOO`` — the nonzero (bm x bn) blocks as a coordinate list (the
+                   SDDMM-side format).
   * ``SellCS``   — SELL-C-σ: rows sorted by nnz within σ-windows, packed
                    into width-adaptive slices, plus the tile-pruned block
                    view the SELL kernels iterate.
@@ -168,6 +170,91 @@ class BlockELL:
         """Fraction of ELL slots that hold real blocks (1.0 = no padding)."""
         total = self.n_block_rows * self.ell_width
         return float(self.nblocks.sum()) / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
+# Block-COO (SDDMM-side format)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCOO:
+    """Coordinate list of nonzero (bm x bn) blocks.
+
+    rows/cols: int32[nnzb] block coordinates (padded entries repeat entry
+               0 and carry an all-zero block, so they contribute nothing).
+    blocks:    f32[nnzb, bm, bn] block data (for SDDMM, the sampling
+               values of A).
+    shape:     (M, N) dense shape padded to multiples of (bm, bn).
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    blocks: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def bm(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def bn(self) -> int:
+        return self.blocks.shape[2]
+
+    @property
+    def nnzb(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    @staticmethod
+    def from_dense(dense: np.ndarray, bm: int, bn: int,
+                   pad_to: int | None = None, *,
+                   device="cuda") -> "BlockCOO":
+        """Keep the nonzero (bm, bn) blocks of ``dense`` (zero-padded up
+        to the block grid), block-row-major; an all-zero matrix keeps one
+        zero block at (0, 0).  ``pad_to`` appends zero blocks."""
+        device = resolve_device(device)
+        dense = np.asarray(dense)
+        m, n = dense.shape
+        mp, np_ = _cdiv(m, bm) * bm, _cdiv(n, bn) * bn
+        if (mp, np_) != (m, n):
+            pad = np.zeros((mp, np_), dtype=dense.dtype)
+            pad[:m, :n] = dense
+            dense = pad
+        nbr, nbc = mp // bm, np_ // bn
+        tiles = dense.reshape(nbr, bm, nbc, bn).transpose(0, 2, 1, 3)
+        nz = tiles.reshape(nbr, nbc, -1).any(axis=-1)
+        ridx, cidx = np.nonzero(nz)
+        nnzb = len(ridx)
+        if nnzb == 0:
+            ridx, cidx = np.zeros(1, np.int64), np.zeros(1, np.int64)
+            blocks = np.zeros((1, bm, bn), dtype=dense.dtype)
+            nnzb = 1
+        else:
+            blocks = tiles[ridx, cidx]
+        if pad_to is not None and pad_to > nnzb:
+            padn = pad_to - nnzb
+            ridx = np.concatenate([ridx, np.full(padn, ridx[0])])
+            cidx = np.concatenate([cidx, np.full(padn, cidx[0])])
+            blocks = np.concatenate(
+                [blocks, np.zeros((padn, bm, bn), dtype=blocks.dtype)])
+        return BlockCOO(rows=_to(ridx.astype(np.int32), device),
+                        cols=_to(cidx.astype(np.int32), device),
+                        blocks=_to(blocks, device), shape=(mp, np_))
+
+    def to_dense(self) -> np.ndarray:
+        """Inverse of from_dense (padded shape), on the host; padded
+        duplicates carry zero blocks, so the sum leaves them harmless."""
+        bm, bn = self.bm, self.bn
+        blocks = self.blocks.cpu().numpy()
+        out = np.zeros((self.shape[0] // bm, self.shape[1] // bn, bm, bn),
+                       dtype=blocks.dtype)
+        np.add.at(out, (self.rows.cpu().numpy(), self.cols.cpu().numpy()),
+                  blocks)
+        return out.transpose(0, 2, 1, 3).reshape(self.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Analytic cost model for SpMM path selection (the port of
+"""Analytic cost model for SpMM / SDDMM path selection (the port of
 ``repro.dispatch.cost_model``).
 
 Costs are relative: elements each path must stream and multiply, times a
@@ -36,6 +36,30 @@ class CostModel:
             PATH_ELL: self.c_ell * stats.ell_stream_estimate * d,
             PATH_SELL: self._sell_cost(stats, d),
             PATH_CSR: self.c_csr * stats.nnz * d,
+        }
+
+    def sddmm_costs(self, stats: MatrixStats, k: int) -> Dict[str, float]:
+        """Relative cost of Y = A (.) (B[M,K] @ C[K,N]) per path."""
+        k = max(int(k), 1)
+        return {
+            PATH_DENSE: self.c_dense * stats.dense_elements * k,
+            PATH_ELL: self.c_ell * stats.stored_elements * k,
+            PATH_SELL: self._sell_cost(stats, k),
+            PATH_CSR: self.c_csr * stats.nnz * k,
+        }
+
+    def fused_attn_costs(self, stats: MatrixStats, k: int, d: int
+                         ) -> Dict[str, float]:
+        """Relative cost of the one-pass fused attention pipeline: one
+        stream of each layout's stored volume at the combined inner width
+        ``k + d`` (the unfused composition streams the topology three
+        times)."""
+        inner = max(int(k), 1) + max(int(d), 1)
+        return {
+            PATH_DENSE: self.c_dense * stats.dense_elements * inner,
+            PATH_ELL: self.c_ell * stats.ell_stream_estimate * inner,
+            PATH_SELL: self._sell_cost(stats, inner),
+            PATH_CSR: self.c_csr * stats.nnz * inner,
         }
 
     def _sell_cost(self, stats: MatrixStats, inner: int) -> float:

@@ -1,5 +1,5 @@
-"""SpMM planning and the plan log (the port of the planning half of
-``repro.dispatch.dispatcher``).
+"""SpMM, SDDMM and fused-attention planning and the plan log (the port
+of the planning half of ``repro.dispatch.dispatcher``).
 
 A plan names the execution path, chosen by a forced policy or by the
 analytic cost model.  ``use_kernel`` records whether the path runs the
@@ -15,8 +15,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
-from repro_torch.dispatch.policy import (PATHS, POLICY_AUTO,
-                                         POLICY_AUTOTUNE, normalize_policy)
+from repro_torch.dispatch.policy import (PATH_FUSED_ATTN, PATHS,
+                                         POLICY_AUTO, POLICY_AUTOTUNE,
+                                         normalize_policy)
 from repro_torch.dispatch.stats import MatrixStats
 
 
@@ -24,14 +25,15 @@ from repro_torch.dispatch.stats import MatrixStats
 class Plan:
     """One resolved dispatch decision (also the reporting record)."""
 
-    op: str                      # "spmm"
+    op: str                      # "spmm" | "sddmm" | "fused_attn"
     path: str                    # ell | sell | csr | dense
     policy: str                  # policy that produced this plan
     reason: str                  # human-readable why
     use_kernel: bool             # the operand is on CUDA: kernels run
     costs: Optional[Dict[str, float]] = None       # analytic model output
     stats: Optional[MatrixStats] = None
-    # the epilogue description of a fused SpMM ("relu+bias"); None = unfused
+    # the epilogue description of a fused SpMM ("relu+bias"), "attn" for
+    # the fused attention pipeline; None = unfused
     fused: Optional[str] = None
 
     def describe(self) -> str:
@@ -100,6 +102,44 @@ def plan_spmm(
     return _plan("spmm", cost_model.spmm_costs(stats, d), stats,
                  policy=policy, device=device,
                  candidates=candidates)
+
+
+def plan_sddmm(
+    stats: MatrixStats,
+    k: int,
+    *,
+    policy: str = POLICY_AUTO,
+    cost_model: CostModel = DEFAULT_COST_MODEL,
+    device=None,
+    candidates: Optional[Tuple[str, ...]] = None,
+) -> Plan:
+    """Plan Y = A ⊙ (B @ C) with inner width ``k``."""
+    return _plan("sddmm", cost_model.sddmm_costs(stats, k), stats,
+                 policy=policy, device=device, candidates=candidates)
+
+
+def plan_fused_attention(
+    stats: MatrixStats,
+    k: int,
+    d: int,
+    *,
+    policy: str = POLICY_AUTO,
+    cost_model: CostModel = DEFAULT_COST_MODEL,
+    device=None,
+    candidates: Optional[Tuple[str, ...]] = None,
+) -> Plan:
+    """Plan the one-pass fused SDDMM -> softmax -> SpMM attention.
+
+    ``k`` is the score width (the SDDMM's K), ``d`` the value width (the
+    SpMM's D); the layout is chosen on the single-stream cost surface
+    (``CostModel.fused_attn_costs``).
+    """
+    plan = _plan(PATH_FUSED_ATTN, cost_model.fused_attn_costs(stats, k, d),
+                 stats, policy=policy, device=device, candidates=candidates)
+    return dataclasses.replace(
+        plan, fused="attn",
+        reason=plan.reason if plan.policy in PATHS
+        else f"one-stream fused pricing (k={k}, d={d}): {plan.reason}")
 
 
 def _plan(op, costs, stats, *, policy, device,

@@ -2,8 +2,9 @@
 
 Execution paths:
 
-  * ``ell``   — Block-ELL; the CUDA kernels K1/K5 for CUDA operands.
-  * ``sell``  — SELL-C-σ over live tiles only; K2/K6 for CUDA operands.
+  * ``ell``   — Block-ELL / Block-COO; the CUDA kernels K1/K5 (SpMM), K3
+                (SDDMM) and K7 (fused attention) for CUDA operands.
+  * ``sell``  — SELL-C-σ over live tiles only; K2/K6, K4 and K8.
   * ``csr``   — element-granular gather + ``index_add_``.
   * ``dense`` — densified fallback.
 
@@ -18,6 +19,12 @@ PATH_SELL = "sell"
 PATH_CSR = "csr"
 PATH_DENSE = "dense"
 PATHS = (PATH_ELL, PATH_SELL, PATH_CSR, PATH_DENSE)
+
+# Op tag of the one-pass fused SDDMM -> softmax -> SpMM pipeline.  Not a
+# storage path: a fused plan still names one of the layout paths above,
+# priced as ONE stream of the topology, and carries this tag in
+# ``Plan.op`` so the dispatch log shows fused decisions distinctly.
+PATH_FUSED_ATTN = "fused_attn"
 
 POLICY_AUTO = "auto"
 POLICY_AUTOTUNE = "autotune"

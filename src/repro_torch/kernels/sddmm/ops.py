@@ -1,0 +1,22 @@
+"""Block-COO SDDMM on a ``BlockCOO`` (the port of
+``repro.kernels.sddmm.ops``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import BlockCOO
+from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
+
+
+def sddmm_blockcoo(coo: BlockCOO, b: torch.Tensor,
+                   c: torch.Tensor) -> BlockCOO:
+    """Y = A ⊙ (B @ C), computed only at A's nonzero blocks; ``b`` has
+    ``coo.shape[0]`` rows and ``c`` ``coo.shape[1]`` columns.  K3 for
+    CUDA tensors, its plain version for CPU tensors."""
+    if b.shape[0] != coo.shape[0] or c.shape[1] != coo.shape[1]:
+        raise ValueError(f"B {tuple(b.shape)} / C {tuple(c.shape)} do not "
+                         f"match the padded Block-COO shape {coo.shape}")
+    out = sddmm_blockcoo_kernel(coo.rows, coo.cols, coo.blocks,
+                                b.contiguous(), c.contiguous())
+    return BlockCOO(rows=coo.rows, cols=coo.cols, blocks=out,
+                    shape=coo.shape)

@@ -1,14 +1,20 @@
-"""GCN on the SpMM substrate — the paper's driving app (the GCN part of
-``repro.models.gnn``).
+"""GCN / GAT on the SpMM + SDDMM substrate — the paper's driving app (the
+port of ``repro.models.gnn``).
 
 GCN layer:   H' = act( Â (H W) )   — one SpMM per layer; with
              ``fuse=True`` (default) the bias + relu tail rides the
              SpMM's fused epilogue instead of a separate pass.
+GAT layer:   e = SDDMM(A, B, C) with K = 2 (paper §4.4: B / C hold the
+             source / destination attention scores), a segment softmax
+             over each row's edges and an SpMM with the attention-weighted
+             adjacency.  With ``fuse=True`` (default) the chain is ONE
+             ``fused_graph_attention`` dispatch (kernel K7 or K8).
 
 The adjacency is one :class:`SparseMatrix` carrying the Block-ELL and
 element forms (plus SELL-C-σ when it is hyper-sparse), so the dispatcher
-can route any of their paths.  Weights are a plain dict
-``{"w": [W_0, ...], "b": [b_0, ...]}`` of tensors; ``"b"`` is optional.
+can route any of their paths.  GCN weights are a plain dict
+``{"w": [W_0, ...], "b": [b_0, ...]}`` of tensors (``"b"`` optional),
+GAT weights ``{"w": [...], "a_src": [...], "a_dst": [...]}``.
 """
 from __future__ import annotations
 
@@ -17,11 +23,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.paper_gnn import GNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparse.matrix import SparseMatrix
-from repro_torch.sparse.ops import matmul
+from repro_torch.sparse.ops import fused_graph_attention, matmul, sample
 
 # adjacency paths a Graph can execute (the densified fallback is
 # deliberately excluded from auto planning)
@@ -29,8 +36,10 @@ GRAPH_PATHS = ("ell", "sell", "csr")
 
 
 def graph_candidates(adj: SparseMatrix):
-    """Paths an adjacency's carried forms can execute."""
-    return tuple(p for p in GRAPH_PATHS if adj.has_form(p))
+    """Paths an adjacency's carried forms can execute (``ell`` runs on
+    an ``ell`` or a ``coo`` form)."""
+    return tuple(p for p in GRAPH_PATHS
+                 if adj.has_form(p) or (p == "ell" and adj.has_form("coo")))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +56,11 @@ class Graph:
     @property
     def device(self) -> torch.device:
         return self.adj.device
+
+    @property
+    def row_ids(self) -> torch.Tensor:
+        """Row id of every edge, in the element (csr) order."""
+        return self.adj.form("csr")[0]
 
 
 def build_graph(adj_dense: np.ndarray, cfg: GNNConfig,
@@ -88,6 +102,11 @@ def _gcn_dims(cfg: GNNConfig):
         + [cfg.n_classes]
 
 
+def _he(rng, shape) -> np.ndarray:
+    return (rng.standard_normal(shape) / np.sqrt(shape[0])) \
+        .astype(np.float32)
+
+
 def init_gcn(cfg: GNNConfig, *, seed: int = 0, bias: bool = False,
              device="cuda") -> Dict:
     """He-initialized GCN weights drawn from ``np.random.default_rng(seed)``
@@ -95,8 +114,7 @@ def init_gcn(cfg: GNNConfig, *, seed: int = 0, bias: bool = False,
     two packages through :func:`gcn_params_from_numpy`)."""
     rng = np.random.default_rng(seed)
     dims = _gcn_dims(cfg)
-    params = {"w": [(rng.standard_normal((dims[i], dims[i + 1]))
-                     / np.sqrt(dims[i])).astype(np.float32)
+    params = {"w": [_he(rng, (dims[i], dims[i + 1]))
                     for i in range(cfg.n_layers)]}
     if bias:
         params["b"] = [np.zeros((dims[i + 1],), np.float32)
@@ -140,4 +158,85 @@ def gcn_forward(params, graph: Graph, x: torch.Tensor, *,
                 h = h + b
             if inner:
                 h = torch.relu(h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# GAT (single head; attention scores via SDDMM with K = 2, per the paper)
+# ---------------------------------------------------------------------------
+
+
+def init_gat(cfg: GNNConfig, *, seed: int = 0, device="cuda") -> Dict:
+    """He-initialized GAT weights drawn from ``np.random.default_rng(seed)``
+    (per layer: W, then a_src and a_dst, each [out, 1]); weights of the
+    JAX package cross over through :func:`gat_params_from_numpy`."""
+    rng = np.random.default_rng(seed)
+    dims = _gcn_dims(cfg)
+    params = {"w": [], "a_src": [], "a_dst": []}
+    for i in range(cfg.n_layers):
+        params["w"].append(_he(rng, (dims[i], dims[i + 1])))
+        params["a_src"].append(_he(rng, (dims[i + 1], 1)))
+        params["a_dst"].append(_he(rng, (dims[i + 1], 1)))
+    return gat_params_from_numpy(params, device)
+
+
+def gat_params_from_numpy(params: Dict, device="cuda") -> Dict:
+    """``{"w", "a_src", "a_dst"}`` lists of numpy arrays (e.g. the JAX
+    package's GAT params through ``np.asarray``) -> the same dict of f32
+    tensors on ``device``."""
+    if set(params) != {"w", "a_src", "a_dst"}:
+        raise ValueError("GAT params need exactly 'w', 'a_src' and 'a_dst',"
+                         f" got {sorted(params)}")
+    return gcn_params_from_numpy(params, device)
+
+
+def _segment_softmax(scores, row_ids, n_rows: int):
+    """Softmax of ``scores`` within each row's edges (``row_ids``)."""
+    idx = row_ids.long()
+    mx = scores.new_full((n_rows,), -float("inf")).scatter_reduce(
+        0, idx, scores, "amax")
+    ex = torch.exp(scores - mx[idx])
+    den = scores.new_zeros((n_rows,)).index_add_(0, idx, ex)
+    return ex / den[idx].clamp_min(1e-12)
+
+
+def gat_forward(params, graph: Graph, x: torch.Tensor, *,
+                policy: Optional[str] = None, fuse: bool = True):
+    """GAT forward pass (single head, K = 2 SDDMM scores per the paper).
+
+    ``fuse=True`` (default) runs each layer's attention aggregation as
+    ONE planned ``fused_graph_attention`` dispatch over the adjacency's
+    carried forms.  ``fuse=False`` keeps the unfused composition (SDDMM
+    on the 0/1 element pattern, leaky relu, segment softmax, SpMM) as
+    the oracle, routed by the dispatcher under ``policy`` (default
+    "auto").
+    """
+    policy = "auto" if policy is None else policy
+    h = x
+    n = graph.n_nodes
+    cand = graph_candidates(graph.adj) if fuse else None
+    # 0/1 edge pattern in element form: the SDDMM sampling operand (the
+    # attention scores ignore the normalized adjacency weights)
+    patt = None if fuse else graph.adj.to("csr").pattern()
+    n_layers = len(params["w"])
+    for i, w in enumerate(params["w"]):
+        h = h @ w
+        s_src = (h @ params["a_src"][i])[:, 0]  # [N]
+        s_dst = (h @ params["a_dst"][i])[:, 0]
+        # score factors with K = 2: q = [s_src, 1], k = [1, s_dst], so
+        # (q kᵀ)[i, j] = s_src[i] + s_dst[j]
+        q = torch.stack([s_src, torch.ones_like(s_src)], dim=1)
+        if fuse:
+            k = torch.stack([torch.ones_like(s_dst), s_dst], dim=1)
+            h = fused_graph_attention(graph.adj, q, k, h,
+                                      edge_act="leaky_relu",
+                                      negative_slope=0.2, policy=policy,
+                                      candidates=cand or None)
+        else:
+            c = torch.stack([torch.ones_like(s_dst), s_dst], dim=0)
+            e = sample(patt, q, c, policy=policy).data  # [nnz]
+            alpha = _segment_softmax(F.leaky_relu(e, 0.2), graph.row_ids, n)
+            h = matmul(patt.with_data(alpha), h, policy=policy)
+        if i < n_layers - 1:
+            h = F.elu(h)
     return h

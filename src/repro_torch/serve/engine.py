@@ -1,10 +1,13 @@
 """Node-classification serving over a fixed graph (the port of
 ``GNNServingEngine`` from ``repro.serve.engine``).
 
-The SpMM aggregation path is chosen once per graph, at construction, by
-the dispatch layer from the graph's sparsity stats; every request then
-runs the GCN forward eagerly on that path.  The engine reports which
-path serves traffic and why.
+The aggregation path is chosen once per graph, at construction, by the
+dispatch layer from the graph's sparsity stats; every request then runs
+the GCN or GAT forward eagerly on that path.  A fused GAT is planned on
+the one-pass attention cost surface (``plan_fused_attention``) and served
+on that plan's path; an unfused GAT samples on the element pattern, so
+it is served under the configured policy.  The engine reports which path
+serves traffic and why.
 """
 from __future__ import annotations
 
@@ -13,9 +16,9 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.dispatch.dispatcher import plan_spmm
-from repro_torch.models.gnn import (GRAPH_PATHS, Graph, gcn_forward,
-                                    graph_candidates)
+from repro_torch.dispatch.dispatcher import plan_fused_attention, plan_spmm
+from repro_torch.models.gnn import (GRAPH_PATHS, Graph, gat_forward,
+                                    gcn_forward, graph_candidates)
 from repro_torch.sparse.plan import plan_cache_stats
 
 
@@ -23,8 +26,8 @@ from repro_torch.sparse.plan import plan_cache_stats
 class GNNServeConfig:
     policy: str = "auto"   # dispatch policy for the aggregation SpMM
     d: Optional[int] = None  # planning feature width (inferred if None)
-    model: str = "gcn"     # "gcn" ("gat" comes with the GAT slice)
-    fuse: bool = True      # fused epilogue
+    model: str = "gcn"     # "gcn" | "gat"
+    fuse: bool = True      # fused epilogue (GCN) / one-pass attention (GAT)
 
 
 def _infer_planning_width(params) -> int:
@@ -52,8 +55,9 @@ def _infer_planning_width(params) -> int:
 
 
 class GNNServingEngine:
-    """Serves GCN node classification over a fixed graph, on the graph's
-    device (``build_graph(..., device=...)``; the card by default)."""
+    """Serves GCN or GAT node classification over a fixed graph, on the
+    graph's device (``build_graph(..., device=...)``; the card by
+    default)."""
 
     def __init__(self, params, graph: Graph,
                  scfg: Optional[GNNServeConfig] = None):
@@ -64,20 +68,28 @@ class GNNServingEngine:
             raise ValueError(
                 "GNNServingEngine: Graph adjacency has no sparsity stats; "
                 "construct it with build_graph()")
-        if self.scfg.model == "gat":
-            raise NotImplementedError(
-                "GAT serving is not ported yet: it comes with the GAT "
-                "slice (fused attention kernels K7/K8)")
-        if self.scfg.model != "gcn":
+        if self.scfg.model not in ("gcn", "gat"):
             raise ValueError(
                 f"GNNServeConfig.model must be 'gcn' or 'gat', got "
                 f"{self.scfg.model!r}")
         d = self.scfg.d if self.scfg.d is not None \
             else _infer_planning_width(params)
-        cand = graph_candidates(graph.adj)
-        self.plan = plan_spmm(graph.adj.stats, d, policy=self.scfg.policy,
-                              device=graph.device,
-                              candidates=cand or GRAPH_PATHS)
+        cand = graph_candidates(graph.adj) or GRAPH_PATHS
+        fuse = self.scfg.fuse
+        if self.scfg.model == "gat" and fuse:
+            # one-pass attention: priced as a single stream of the
+            # topology at the combined (score + value) width
+            self.plan = plan_fused_attention(
+                graph.adj.stats, 2, d, policy=self.scfg.policy,
+                device=graph.device, candidates=cand)
+        else:
+            self.plan = plan_spmm(graph.adj.stats, d,
+                                  policy=self.scfg.policy,
+                                  device=graph.device, candidates=cand)
+        # an unfused GAT samples on the element pattern, so the layout
+        # plan applies to the fused pipeline and to GCN only
+        self._policy = self.scfg.policy \
+            if self.scfg.model == "gat" and not fuse else self.plan.path
         self.n_requests = 0
 
     @property
@@ -89,9 +101,10 @@ class GNNServingEngine:
         [n_nodes, n_classes] on the engine's device."""
         self.n_requests += 1
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        forward = gat_forward if self.scfg.model == "gat" else gcn_forward
         with torch.no_grad():
-            return gcn_forward(self.params, self.graph, x,
-                               policy=self.plan.path, fuse=self.scfg.fuse)
+            return forward(self.params, self.graph, x, policy=self._policy,
+                           fuse=self.scfg.fuse)
 
     def classify(self, x) -> torch.Tensor:
         return self.infer(x).argmax(dim=-1)

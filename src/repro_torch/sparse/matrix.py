@@ -1,5 +1,5 @@
 """``SparseMatrix`` — one sparse matrix carried in one or more storage
-forms (the port of the part of ``repro.sparse.matrix`` that GCN serving
+forms (the port of the part of ``repro.sparse.matrix`` that serving
 uses).
 
 Forms:
@@ -7,6 +7,8 @@ Forms:
   * ``"csr"``  — element-granular (row_ids, col_ids, values) tensors,
     int32 indices;
   * ``"ell"``  — :class:`repro_torch.core.formats.BlockELL`;
+  * ``"coo"``  — :class:`repro_torch.core.formats.BlockCOO` (the
+    SDDMM-side blocked form);
   * ``"sell"`` — :class:`repro_torch.core.formats.SellCS`.
 
 A matrix may carry several forms at once, so the dispatcher can route
@@ -15,18 +17,37 @@ any of their paths.  The planner reads the host-measured
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.device import resolve_device
 from repro_torch.dispatch.stats import MatrixStats
 from repro_torch.sparse import paths
 from repro_torch.sparse.plan import PlanCache
 
-FORMATS = ("ell", "sell", "csr")
+FORMATS = ("ell", "sell", "coo", "csr")
+
+
+def values_of(name: str, form) -> torch.Tensor:
+    """The values tensor of one form."""
+    if name == "csr":
+        return form[2]
+    if name == "sell":
+        return form.slot_vals
+    return form.blocks
+
+
+def with_values(name: str, form, vals: torch.Tensor):
+    """Same topology, new values."""
+    if name == "csr":
+        return (form[0], form[1], vals)
+    if name == "sell":
+        return dataclasses.replace(form, slot_vals=vals)
+    return dataclasses.replace(form, blocks=vals)
 
 
 class SparseMatrix:
@@ -87,7 +108,8 @@ class SparseMatrix:
         """The raw container of one carried form."""
         if name not in self._forms:
             raise ValueError(
-                f"matrix carries no {name!r} form (has {self.formats})")
+                f"matrix carries no {name!r} form (has {self.formats}); "
+                "convert with .to()")
         return self._forms[name]
 
     @property
@@ -96,9 +118,13 @@ class SparseMatrix:
         return self._cache
 
     @property
+    def data(self) -> torch.Tensor:
+        """Values of the primary form."""
+        return values_of(self.format, self._forms[self.format])
+
+    @property
     def device(self) -> torch.device:
-        form = self._forms[self.format]
-        return form[2].device if self.format == "csr" else form.device
+        return self.data.device
 
     @property
     def block(self) -> Tuple[int, int]:
@@ -110,6 +136,29 @@ class SparseMatrix:
         nnz = self.stats.nnz if self.stats is not None else "?"
         return (f"SparseMatrix(shape={self.shape}, formats={self.formats}, "
                 f"nnz={nnz}, device={self.device})")
+
+    # -- data / topology edits ----------------------------------------------
+
+    def with_data(self, values: torch.Tensor) -> "SparseMatrix":
+        """Same topology, new values on the *primary* form.  Secondary
+        forms are dropped (their values would go stale); the plan memo is
+        shared, since plans depend on structure, not values."""
+        name = self.format
+        form = with_values(name, self._forms[name], values)
+        return SparseMatrix({name: form}, self.shape, self.stats,
+                            cache=self._cache)
+
+    def pattern(self) -> "SparseMatrix":
+        """0/1 mask of the primary form's nonzero entries (the sampling
+        operand of SDDMM)."""
+        v = self.data
+        return self.with_data((v != 0).to(v.dtype))
+
+    def sddmm(self, b, c, **kw) -> "SparseMatrix":
+        """``self ⊙ (b @ c)`` at this matrix's stored entries."""
+        from repro_torch.sparse import ops
+
+        return ops.sddmm(self, b, c, **kw)
 
     # -- conversions --------------------------------------------------------
 
@@ -123,11 +172,30 @@ class SparseMatrix:
             return paths.densify_elements(form[0], form[1], form[2], (m, n))
         if name == "sell":
             return paths.densify_sell(form)
-        return paths.densify_ell(form)[:m, :n]
+        full = paths.densify_ell(form) if name == "ell" \
+            else paths.densify_coo(form)
+        return full[:m, :n]
 
     def to_dense(self) -> np.ndarray:
         """Host numpy densification."""
         return self.densify().cpu().numpy()
+
+    def to(self, fmt: str):
+        """Convert to another format: a single-form ``SparseMatrix``
+        (reusing the tensors when the form is carried; host conversion
+        otherwise), or a dense tensor for ``"dense"``.  The plan memo is
+        shared."""
+        if fmt == "dense":
+            return self.densify()
+        if fmt not in FORMATS:
+            raise ValueError(
+                f"unknown format {fmt!r}; expected 'dense' or {FORMATS}")
+        form = self._forms.get(fmt)
+        if form is None:
+            form = _build_form(fmt, self.to_dense(), self.block, None,
+                               self.device)
+        return SparseMatrix({fmt: form}, self.shape, self.stats,
+                            cache=self._cache)
 
     def with_form(self, fmt: str) -> "SparseMatrix":
         """This matrix plus one more carried form (a no-op when ``fmt`` is
@@ -136,8 +204,7 @@ class SparseMatrix:
         if fmt in self._forms:
             return self
         forms = dict(self._forms)
-        forms[fmt] = _build_form(fmt, self.to_dense(), self.block, None,
-                                 self.device)
+        forms[fmt] = self.to(fmt)._forms[fmt]
         return SparseMatrix(forms, self.shape, self.stats, cache=self._cache)
 
 
@@ -151,6 +218,8 @@ def _build_form(name: str, a: np.ndarray, block: Tuple[int, int],
                                    device=device)
     if name == "sell":
         return SellCS.from_dense(a, block=block, device=device)
+    if name == "coo":
+        return BlockCOO.from_dense(a, bm, bn, device=device)
     if name == "csr":
         if rows is None:
             rows, cols = np.nonzero(a)

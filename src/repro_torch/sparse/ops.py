@@ -1,12 +1,13 @@
-"""Planned SpMM front-end for ``SparseMatrix`` (the port of
-``repro.sparse.ops.matmul``).
+"""Planned SpMM, SDDMM and fused-attention front-ends for
+``SparseMatrix`` (the port of ``repro.sparse.ops``).
 
-``matmul`` (what ``A @ H`` calls) resolves an execution path through the
-analytic cost model for ``policy="auto"`` or takes a forced path, then
-runs it.  Plans are memoized per matrix: the first call for a given key
-plans, every later call hits the memo.  Candidate paths follow the forms
-a matrix carries; ``dense`` densifies on the device and is always
-available.
+``matmul`` (what ``A @ H`` calls), ``sddmm`` / ``sample`` and
+``fused_graph_attention`` resolve an execution path through the analytic
+cost model for ``policy="auto"`` or take a forced path, then run it.
+Plans are memoized per matrix: the first call for a given key plans,
+every later call hits the memo.  Candidate paths follow the forms a
+matrix carries (``ell`` needs an ``ell`` or ``coo`` form); ``dense``
+densifies on the device and is always available.
 """
 from __future__ import annotations
 
@@ -16,19 +17,21 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
-from repro_torch.dispatch.dispatcher import Plan, plan_spmm, record_plan
+from repro_torch.dispatch.dispatcher import (Plan, plan_fused_attention,
+                                             plan_sddmm, plan_spmm,
+                                             record_plan)
 from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
-                                         PATH_SELL, PATHS, POLICY_AUTO,
-                                         normalize_policy)
+                                         PATH_FUSED_ATTN, PATH_SELL, PATHS,
+                                         POLICY_AUTO, normalize_policy)
 from repro_torch.kernels.fused.epilogue import normalize_epilogue
 from repro_torch.sparse import autodiff
-from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse.matrix import SparseMatrix, with_values
 
 
 def available_paths(a: SparseMatrix) -> Tuple[str, ...]:
     """Execution paths the matrix's carried forms can run."""
     cand = []
-    if a.has_form("ell"):
+    if a.has_form("ell") or a.has_form("coo"):
         cand.append(PATH_ELL)
     if a.has_form("sell"):
         cand.append(PATH_SELL)
@@ -38,12 +41,18 @@ def available_paths(a: SparseMatrix) -> Tuple[str, ...]:
     return tuple(cand)
 
 
-def _resolve_plan(op: str, a: SparseMatrix, inner_dim: int, ref_dtype,
+def _resolve_plan(op: str, a: SparseMatrix, inner_dim, ref_dtype,
                   policy: str, cand: Tuple[str, ...],
                   cost_model: CostModel, key_extra: Tuple = (),
                   fused: Optional[str] = None) -> Plan:
-    """Resolve (and memoize) one dispatch plan (forced or cost model)."""
-    key = (op, int(inner_dim), policy, str(ref_dtype), cand,
+    """Resolve (and memoize) one dispatch plan (forced or cost model).
+
+    ``inner_dim`` is the operand width: an int for spmm / sddmm, a
+    ``(k, d)`` pair for the fused attention op.
+    """
+    inner_key = tuple(int(x) for x in inner_dim) \
+        if isinstance(inner_dim, tuple) else int(inner_dim)
+    key = (op, inner_key, policy, str(ref_dtype), cand,
            cost_model) + tuple(key_extra)
     plan = a.plan_cache.get(key)
     if plan is not None:
@@ -59,13 +68,31 @@ def _resolve_plan(op: str, a: SparseMatrix, inner_dim: int, ref_dtype,
             raise ValueError(
                 f"{op}: matrix has no sparsity stats; construct it with "
                 "SparseMatrix.from_dense or force a path policy")
-        plan = plan_spmm(a.stats, inner_dim, policy=policy,
-                         cost_model=cost_model, device=a.device,
-                         candidates=cand)
+        kw = dict(policy=policy, cost_model=cost_model, device=a.device,
+                  candidates=cand)
+        if op == PATH_FUSED_ATTN:
+            plan = plan_fused_attention(a.stats, *inner_key, **kw)
+        elif op == "sddmm":
+            plan = plan_sddmm(a.stats, inner_key, **kw)
+        else:
+            plan = plan_spmm(a.stats, inner_key, **kw)
     if fused is not None and plan.fused != fused:
         plan = dataclasses.replace(plan, fused=fused)
     a.plan_cache.put(key, plan)
     return plan
+
+
+def _check_operand(what: str, x, a: SparseMatrix) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} must be a tensor, got {type(x)}")
+    if x.device != a.device:
+        raise ValueError(f"{what} is on {x.device}, A on {a.device}")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# SpMM
+# ---------------------------------------------------------------------------
 
 
 def matmul(
@@ -96,8 +123,7 @@ def matmul(
         raise ValueError(
             f"spmm: H has {h.shape[0]} rows but A has {a.shape[1]} "
             f"columns (A shape {a.shape})")
-    if h.device != a.device:
-        raise ValueError(f"spmm: H is on {h.device}, A on {a.device}")
+    _check_operand("spmm: H", h, a)
     if bias is not None:
         # canonicalize to a [D] vector (scalars broadcast)
         bias = torch.as_tensor(bias, dtype=h.dtype, device=h.device)
@@ -127,3 +153,122 @@ def matmul(
     if epi is None:
         return autodiff.spmm_exec(plan.path, a, h)
     return autodiff.spmm_epilogue_exec(plan.path, epi, a, h, bias, residual)
+
+
+# ---------------------------------------------------------------------------
+# SDDMM
+# ---------------------------------------------------------------------------
+
+
+def sddmm(
+    a: SparseMatrix,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    policy: str = POLICY_AUTO,
+    candidates: Optional[Tuple[str, ...]] = None,
+    cost_model: CostModel = DEFAULT_COST_MODEL,
+) -> SparseMatrix:
+    """S = A ⊙ (B @ C) at A's stored entries.
+
+    Returns a single-form ``SparseMatrix`` sharing A's topology, in the
+    layout of the form the planned path read; ``S.data`` holds the
+    sampled values (element order for the csr path, what GAT's segment
+    softmax consumes).  ``b`` [M, K] and ``c`` [K, N] lie on A's device.
+    """
+    if not isinstance(a, SparseMatrix):
+        raise TypeError(f"sddmm expects a SparseMatrix, got {type(a)}")
+    _check_operand("sddmm: B", b, a)
+    _check_operand("sddmm: C", c, a)
+    if b.shape[0] != a.shape[0]:
+        raise ValueError(
+            f"sddmm: B has {b.shape[0]} rows but A has {a.shape[0]}")
+    if c.shape[1] != a.shape[1]:
+        raise ValueError(
+            f"sddmm: C has {c.shape[1]} columns but A has {a.shape[1]}")
+    if b.shape[1] != c.shape[0]:
+        raise ValueError(
+            f"sddmm: inner dims disagree: B {tuple(b.shape)} vs C "
+            f"{tuple(c.shape)}")
+    policy = normalize_policy(policy)
+    cand = tuple(candidates) if candidates else available_paths(a)
+    plan = _resolve_plan("sddmm", a, b.shape[1], b.dtype, policy, cand,
+                         cost_model)
+    record_plan(plan)
+    vals = autodiff.sddmm_values(plan.path, a, b, c)
+    form_name = autodiff.form_read_by(a, plan.path)
+    return SparseMatrix(
+        {form_name: with_values(form_name, a.form(form_name), vals)},
+        a.shape, a.stats, cache=a.plan_cache)
+
+
+# the paper's naming for the masked product
+sample = sddmm
+
+
+# ---------------------------------------------------------------------------
+# Fused graph attention (one-pass SDDMM -> edge act -> softmax -> SpMM)
+# ---------------------------------------------------------------------------
+
+
+def fused_graph_attention(
+    a: SparseMatrix,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    edge_act: str = "leaky_relu",
+    negative_slope: float = 0.2,
+    policy: str = POLICY_AUTO,
+    candidates: Optional[Tuple[str, ...]] = None,
+    cost_model: CostModel = DEFAULT_COST_MODEL,
+) -> torch.Tensor:
+    """Y = softmax_row(act(q kᵀ ⊙ pattern(A))) @ V, in one dispatch.
+
+    The whole GAT aggregation (score the edges at A's nonzero pattern,
+    activate, softmax each row, aggregate V) runs as ONE planned
+    pipeline: a single plan in ``dispatch_log()``, and on the ell and
+    sell paths a single pass of kernel K7 or K8 over the topology's live
+    tiles (the E-length edge scores never exist in device memory).
+
+    ``q``: [M, dk] / ``k``: [N, dk] score factors (1-D inputs are one
+    column), ``v``: [N, D] values (a 1-D ``v`` gives a 1-D result).  A
+    contributes its structural nonzeros only (values are not read).
+    """
+    if not isinstance(a, SparseMatrix):
+        raise TypeError(
+            f"fused_graph_attention expects a SparseMatrix, got {type(a)}")
+    for what, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(f"fused_graph_attention: {what}", x, a)
+    if q.ndim == 1:
+        q = q[:, None]
+    if k.ndim == 1:
+        k = k[:, None]
+    v_was_1d = v.ndim == 1
+    if v_was_1d:
+        v = v[:, None]
+    if q.shape[0] != a.shape[0]:
+        raise ValueError(
+            f"fused_graph_attention: q has {q.shape[0]} rows but A has "
+            f"{a.shape[0]}")
+    if k.shape[0] != a.shape[1]:
+        raise ValueError(
+            f"fused_graph_attention: k has {k.shape[0]} rows but A has "
+            f"{a.shape[1]} columns")
+    if v.shape[0] != a.shape[1]:
+        raise ValueError(
+            f"fused_graph_attention: v has {v.shape[0]} rows but A has "
+            f"{a.shape[1]} columns")
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"fused_graph_attention: score widths disagree: q "
+            f"{tuple(q.shape)} vs k {tuple(k.shape)}")
+    policy = normalize_policy(policy)
+    cand = tuple(candidates) if candidates else available_paths(a)
+    slope = float(negative_slope)
+    plan = _resolve_plan(PATH_FUSED_ATTN, a, (q.shape[1], v.shape[1]),
+                         q.dtype, policy, cand, cost_model,
+                         key_extra=(edge_act, slope), fused="attn")
+    record_plan(plan)
+    y = autodiff.fused_attention_exec(plan.path, a, q, k, v, edge_act, slope)
+    return y[:, 0] if v_was_1d else y

@@ -1,7 +1,9 @@
-"""The CUDA kernels K1, K2, K5 and K6 on the card, held to their plain
+"""The CUDA kernels K1-K8 (all but K9) on the card, held to their plain
 PyTorch versions (tolerance rtol 1e-4, atol 1e-5: f32 sums in another
-order), across block shapes, ragged edges and D-tile widths; and GCN
-serving on the card against the same engine on the CPU.
+order, and for K7/K8 the online softmax against the two-sweep), across
+block shapes, ragged edges, K / dk and D-tile widths and all three edge
+activations; and GCN and GAT serving and the SDDMM front-end on the card
+against the same calls on the CPU.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -11,21 +13,31 @@ import pytest
 import torch
 
 from repro_torch.configs.paper_gnn import SMOKE_CONFIG
-from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.data.pipeline import random_graph
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused.attention import (fused_attn_blockell_kernel,
+                                                 fused_attn_blockell_ref,
+                                                 fused_attn_sell_kernel,
+                                                 fused_attn_sell_tiles_ref)
 from repro_torch.kernels.fused.epilogue import Epilogue
 from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
                                             spmm_blockell_epilogue_ref,
                                             spmm_sell_epilogue_kernel,
                                             spmm_sell_epilogue_ref)
+from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
+from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
+from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
+                                            sddmm_sell_tiles_ref)
 from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
 from repro_torch.kernels.spmm.sell import (sell_tile_blocks,
                                            spmm_sell_kernel,
                                            spmm_sell_tiles_ref)
-from repro_torch.models.gnn import build_graph, init_gcn
+from repro_torch.models.gnn import (build_graph, graph_candidates, init_gat,
+                                    init_gcn)
 from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
+from repro_torch.sparse.ops import sddmm
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -116,6 +128,102 @@ def test_serving_on_card_matches_cpu(dev, kind, fuse):
         eng = GNNServingEngine(params, graph, GNNServeConfig(fuse=fuse))
         assert eng.plan.path == kind
         assert eng.plan.use_kernel == (device == "cuda")
+        out[device] = eng.infer(x).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("k", [1, 2, 17, 48])
+def test_sddmm_kernels_match_plain(dev, block, k):
+    bm, bn = block
+    coo = BlockCOO.from_dense(_sparse(k, 301, 277, 0.05), bm, bn,
+                              device=dev)  # weighted mask
+    b = torch.randn(coo.shape[0], k, device=dev)
+    c = torch.randn(k, coo.shape[1], device=dev)
+    ops = (coo.rows, coo.cols, coo.blocks, b, c)
+    before = sddmm_blockcoo_kernel.launches
+    torch.testing.assert_close(sddmm_blockcoo_kernel(*ops),
+                               sddmm_blockcoo_ref(*ops), **TOL)
+    assert sddmm_blockcoo_kernel.launches == before + 1
+    sell = SellCS.from_dense(_sparse(k, 301, 277, 0.004), block=block,
+                             device=dev)
+    ops = (sell.tile_rows, sell.tile_cols,
+           (sell_tile_blocks(sell) != 0).float(),
+           torch.randn(sell.n_live_block_rows * bm, k, device=dev),
+           torch.randn(k, -(-277 // bn) * bn, device=dev))
+    before = sddmm_sell_kernel.launches
+    torch.testing.assert_close(sddmm_sell_kernel(*ops),
+                               sddmm_sell_tiles_ref(*ops), **TOL)
+    assert sddmm_sell_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("dk,d", [(2, 4), (2, 33), (48, 16), (2, 128)])
+@pytest.mark.parametrize("act", ["identity", "relu", "leaky_relu"])
+def test_attention_kernels_match_plain(dev, block, dk, d, act):
+    bm, bn = block
+    a = _sparse(dk + d, 301, 277, 0.05)
+    a[5] = 0.0  # edge-less rows
+    a[100:140] = 0.0
+    ell = BlockELL.from_dense(a, bm, bn, device=dev)
+    ops = (ell.indices, ell.blocks, torch.randn(ell.shape[0], dk, device=dev),
+           torch.randn(dk, ell.shape[1], device=dev),
+           torch.randn(ell.shape[1], d, device=dev))
+    before = fused_attn_blockell_kernel.launches
+    got = fused_attn_blockell_kernel(*ops, act=act, slope=0.2)
+    torch.testing.assert_close(got, fused_attn_blockell_ref(
+        *ops, act=act, slope=0.2), **TOL)
+    assert fused_attn_blockell_kernel.launches == before + 1
+    assert bool((got[5] == 0).all()) and bool((got[100:140] == 0).all())
+    sell = SellCS.from_dense(_sparse(dk + d, 301, 277, 0.004), block=block,
+                             device=dev)
+    n_pad = -(-277 // bn) * bn
+    ops = (sell.tile_rows, sell.tile_cols,
+           (sell_tile_blocks(sell) != 0).float(),
+           torch.randn(sell.n_live_block_rows * bm, dk, device=dev),
+           torch.randn(dk, n_pad, device=dev),
+           torch.randn(n_pad, d, device=dev))
+    kw = dict(n_live_block_rows=sell.n_live_block_rows, act=act, slope=0.2)
+    before = fused_attn_sell_kernel.launches
+    torch.testing.assert_close(fused_attn_sell_kernel(*ops, **kw),
+                               fused_attn_sell_tiles_ref(*ops, **kw), **TOL)
+    assert fused_attn_sell_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+def test_sddmm_front_end_on_card_matches_cpu(dev, kind):
+    rng = np.random.default_rng(1)
+    adj = (rng.random((256, 256)) < 0.1).astype(np.float32) \
+        if kind == "ell" else random_graph(256, 1.0, seed=1)
+    b = rng.standard_normal((256, 2)).astype(np.float32)
+    c = rng.standard_normal((2, 256)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        graph = build_graph(adj, SMOKE_CONFIG, device=device)
+        s = sddmm(graph.adj, torch.from_numpy(b).to(device),
+                  torch.from_numpy(c).to(device),
+                  candidates=graph_candidates(graph.adj))
+        assert s.format == kind
+        out[device] = s.data.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], **TOL)
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_gat_serving_on_card_matches_cpu(dev, kind, fuse):
+    rng = np.random.default_rng(0)
+    adj = (rng.random((256, 256)) < 0.1).astype(np.float32) \
+        if kind == "ell" else random_graph(256, 1.0, seed=1)
+    x = rng.standard_normal((256, SMOKE_CONFIG.in_features)) \
+        .astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        graph = build_graph(adj, SMOKE_CONFIG, device=device)
+        params = init_gat(SMOKE_CONFIG, seed=3, device=device)
+        eng = GNNServingEngine(params, graph,
+                               GNNServeConfig(model="gat", fuse=fuse))
+        assert eng.plan.path == kind
         out[device] = eng.infer(x).cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
                                atol=1e-5)

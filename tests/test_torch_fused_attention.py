@@ -1,0 +1,185 @@
+"""Port parity: one-pass fused graph attention, its kernels' wrappers (K7,
+K8) and ``fused_graph_attention``.
+
+On the CPU each wrapper runs its kernel's plain version (the two-sweep
+softmax); it is held to the JAX package's Pallas kernel run in interpret
+mode (the online softmax) on the same numpy inputs, for all three edge
+activations.  The front-end is held to ``repro.sparse
+.fused_graph_attention`` on every path.  Tolerance: rtol 1e-4, atol 1e-5
+(the reference's fused-attention tolerance: exp and f32 sums in another
+order).  Edge-less rows must come out exactly 0.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.formats import BlockELL as JBlockELL
+from repro.core.formats import SellCS as JSellCS
+from repro.kernels.fused.attention import \
+    fused_attn_blockell_kernel as j_k7
+from repro.kernels.fused.attention import fused_attn_sell_kernel as j_k8
+from repro.kernels.spmm.sell import sell_tile_blocks as j_tile_blocks
+from repro.sparse import SparseMatrix as JSparseMatrix
+from repro.sparse import fused_graph_attention as j_attention
+from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
+from repro_torch.kernels.fused.attention import (fused_attn_blockell_kernel,
+                                                 fused_attn_sell,
+                                                 fused_attn_sell_kernel,
+                                                 fused_attn_sell_slots_ref)
+from repro_torch.kernels.spmm.sell import sell_tile_blocks
+from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse.ops import fused_graph_attention
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+M, N, BLOCK = 45, 40, (8, 8)  # ragged: M and N are not multiples of 8
+ACTS = ["identity", "relu", "leaky_relu"]
+EMPTY_ROWS = (5, 17, 30, 31)
+
+
+def _pattern(seed, density=0.3, m=M, n=N):
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((m, n)) < density, rng.random((m, n)) + 0.5,
+                 0.0).astype(np.float32)
+    a[list(EMPTY_ROWS)] = 0.0
+    return a
+
+
+def _qkv(seed, dk, d, m=M, n=N):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(m, dk)).astype(np.float32),
+            rng.normal(size=(n, dk)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _pad(x, rows, cols=None):
+    out = np.zeros((rows, x.shape[1] if cols is None else cols), x.dtype)
+    out[: x.shape[0], : x.shape[1]] = x
+    return out
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dk,d", [(2, 16), (48, 12)])
+def test_k7_plain_matches_pallas_interpret(act, dk, d):
+    a = _pattern(dk + d)
+    q, k, v = _qkv(1, dk, d)
+    jell = JBlockELL.from_dense(a, *BLOCK)
+    ell = BlockELL.from_dense(a, *BLOCK, device="cpu")
+    mp, np_ = ell.shape
+    q, kt, v = _pad(q, mp), _pad(k.T, dk, np_), _pad(v, np_)
+    want = j_k7(jell.indices, jell.blocks, jnp.asarray(q), jnp.asarray(kt),
+                jnp.asarray(v), act=act, slope=0.2, interpret=True)
+    before = fused_attn_blockell_kernel.launches
+    got = fused_attn_blockell_kernel(ell.indices, ell.blocks, _t(q), _t(kt),
+                                     _t(v), act=act, slope=0.2)
+    assert fused_attn_blockell_kernel.launches == before  # plain on CPU
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[list(EMPTY_ROWS)].any()
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dk,d", [(2, 16), (48, 12)])
+def test_k8_plain_matches_pallas_interpret(act, dk, d):
+    a = _pattern(dk + d, density=0.08)
+    q, k, v = _qkv(2, dk, d)
+    jsell = JSellCS.from_dense(a, block=BLOCK)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    bm, bn = BLOCK
+    n_pad = -(-N // bn) * bn
+    q_perm = np.concatenate([q, np.zeros((1, dk), np.float32)])[
+        sell.perm.numpy()]
+    kt, v = _pad(k.T, dk, n_pad), _pad(v, n_pad)
+    mask = (sell_tile_blocks(sell) != 0).float()
+    np.testing.assert_array_equal(
+        mask.numpy(), np.asarray(j_tile_blocks(jsell) != 0))
+    kw = dict(n_live_block_rows=sell.n_live_block_rows, act=act, slope=0.2)
+    want = j_k8(jsell.tile_rows, jsell.tile_cols, jnp.asarray(mask.numpy()),
+                jnp.asarray(q_perm), jnp.asarray(kt), jnp.asarray(v),
+                interpret=True, **kw)
+    before = fused_attn_sell_kernel.launches
+    got = fused_attn_sell_kernel(sell.tile_rows, sell.tile_cols, mask,
+                                 _t(q_perm), _t(kt), _t(v), **kw)
+    assert fused_attn_sell_kernel.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_sell_tile_route_matches_slot_reference(act):
+    """The wrapper's gathers (q into packed order, the output back to
+    logical rows, pruned rows zero) against the element reference."""
+    a = _pattern(3, density=0.08)
+    q, k, v = (_t(x) for x in _qkv(3, 2, 8))
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    got = fused_attn_sell(sell, q, k.T, v, act=act)
+    want = fused_attn_sell_slots_ref(sell, q, k.T, v, act=act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert not got[list(EMPTY_ROWS)].any()
+
+
+@pytest.mark.parametrize("path", ["ell", "sell", "csr", "dense"])
+@pytest.mark.parametrize("act", ACTS)
+def test_front_end_matches_reference(path, act):
+    a = _pattern(4)
+    q, k, v = _qkv(4, 2, 16)
+    formats = ("ell", "sell", "csr")
+    want = j_attention(JSparseMatrix.from_dense(a, formats=formats,
+                                                block=BLOCK),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       edge_act=act, policy=path)
+    mat = SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                  device="cpu")
+    clear_log()
+    got = fused_graph_attention(mat, _t(q), _t(k), _t(v), edge_act=act,
+                                policy=path)
+    (plan,) = dispatch_log()  # the whole pipeline is one plan
+    assert (plan.op, plan.path, plan.fused) == ("fused_attn", path, "attn")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert got.shape == (M, 16)
+    assert not got[list(EMPTY_ROWS)].any()  # exactly 0
+
+
+def test_auto_plan_and_coo_form_match_reference():
+    a = _pattern(5)
+    q, k, v = _qkv(5, 2, 8)
+    for formats in (("ell", "sell", "csr"), ("coo",)):
+        jmat = JSparseMatrix.from_dense(a, formats=formats, block=BLOCK)
+        mat = SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                      device="cpu")
+        want = j_attention(jmat, jnp.asarray(q), jnp.asarray(k),
+                           jnp.asarray(v))
+        clear_log()
+        got = fused_graph_attention(mat, _t(q), _t(k), _t(v))
+        (plan,) = dispatch_log()
+        jplan = jmat.plan_cache.entries
+        (jp,) = [p for p in jplan.values() if p.op == "fused_attn"]
+        assert plan.path == jp.path and plan.reason == jp.reason
+        assert plan.reason.startswith("one-stream fused pricing (k=2, d=8)")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_one_dimensional_lanes_and_shape_checks():
+    a = _pattern(6)
+    q, k, v = _qkv(6, 1, 1)
+    mat = SparseMatrix.from_dense(a, block=BLOCK, device="cpu")
+    want = j_attention(JSparseMatrix.from_dense(a, formats=("ell", "csr"),
+                                                block=BLOCK),
+                       jnp.asarray(q[:, 0]), jnp.asarray(k[:, 0]),
+                       jnp.asarray(v[:, 0]), policy="ell")
+    got = fused_graph_attention(mat, _t(q[:, 0]), _t(k[:, 0]), _t(v[:, 0]),
+                                policy="ell")
+    assert got.shape == (M,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    q, k, v = (_t(x) for x in _qkv(6, 2, 4))
+    with pytest.raises(ValueError, match="q has"):
+        fused_graph_attention(mat, q[1:], k, v)
+    with pytest.raises(ValueError, match="k has"):
+        fused_graph_attention(mat, q, k[1:], v)
+    with pytest.raises(ValueError, match="v has"):
+        fused_graph_attention(mat, q, k, v[1:])
+    with pytest.raises(ValueError, match="score widths"):
+        fused_graph_attention(mat, q, k[:, :1], v)

@@ -22,7 +22,8 @@ from repro.sparse import matmul as j_matmul
 from repro_torch.configs.paper_gnn import SMOKE_CONFIG
 from repro_torch.data.pipeline import random_graph
 from repro_torch.models.gnn import (build_graph, gcn_forward,
-                                    gcn_params_from_numpy, init_gcn)
+                                    gcn_params_from_numpy, init_gat,
+                                    init_gcn)
 from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
 from repro_torch.sparse.matrix import SparseMatrix
 from repro_torch.sparse.ops import matmul
@@ -117,12 +118,18 @@ def test_numpy_seeded_init_and_fuse_agree():
 
 
 def test_gat_is_a_later_slice():
+    """GAT came with the slice after GCN: it is served now, planned as one
+    fused-attention pipeline; other models still raise."""
     graph = build_graph(_adjacency("csr"), SMOKE_CONFIG, device="cpu")
-    params = init_gcn(SMOKE_CONFIG, device="cpu")
-    with pytest.raises(NotImplementedError, match="GAT"):
-        GNNServingEngine(params, graph, GNNServeConfig(model="gat"))
+    eng = GNNServingEngine(init_gat(SMOKE_CONFIG, device="cpu"), graph,
+                           GNNServeConfig(model="gat"))
+    report = eng.dispatch_report()
+    assert (report["model"], report["plan_op"]) == ("gat", "fused_attn")
+    x = np.random.default_rng(6).normal(size=(N, 32)).astype(np.float32)
+    assert eng.infer(x).shape == (N, SMOKE_CONFIG.n_classes)
     with pytest.raises(ValueError):
-        GNNServingEngine(params, graph, GNNServeConfig(model="mlp"))
+        GNNServingEngine(init_gcn(SMOKE_CONFIG, device="cpu"), graph,
+                         GNNServeConfig(model="mlp"))
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch):

@@ -1,0 +1,211 @@
+"""Port parity: SDDMM, its kernels' wrappers (K3, K4) and the SDDMM
+front-end.
+
+On the CPU each wrapper runs its kernel's plain version; it is held to
+the JAX package's Pallas kernel run in interpret mode on the same numpy
+inputs, at K = 2 (GAT's width) and 48, with a weighted mask for K3
+(rtol 1e-5, atol 1e-5: f32 sums in another order).  The front-end
+``repro_torch.sparse.ops.sddmm`` is held to ``repro.sparse.sddmm`` on
+the same matrices: the same plan and values within rtol 3e-4, atol 3e-4
+(the reference's own SDDMM tolerance).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.paper_gnn import SMOKE_CONFIG as J_SMOKE
+from repro.core.formats import BlockCOO as JBlockCOO
+from repro.core.formats import SellCS as JSellCS
+from repro.kernels.sddmm.kernel import sddmm_blockcoo_kernel as j_k3
+from repro.kernels.sddmm.sell import sample_sell_blocked as j_sample_sell
+from repro.kernels.sddmm.sell import sddmm_sell_kernel as j_k4
+from repro.models.gnn import build_graph as j_build_graph
+from repro.models.gnn import graph_candidates as j_graph_candidates
+from repro.sparse import SparseMatrix as JSparseMatrix
+from repro.sparse import sddmm as j_sddmm
+from repro_torch.configs.paper_gnn import SMOKE_CONFIG
+from repro_torch.core.formats import BlockCOO, SellCS
+from repro_torch.data.pipeline import random_graph
+from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
+from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
+from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
+from repro_torch.kernels.sddmm.sell import (sample_sell_blocked,
+                                            sddmm_sell_kernel)
+from repro_torch.models.gnn import build_graph, graph_candidates
+from repro_torch.sparse import ops
+from repro_torch.sparse.matrix import SparseMatrix
+
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+TOL = dict(rtol=3e-4, atol=3e-4)
+M, N, BLOCK = 45, 40, (8, 8)  # ragged: M and N are not multiples of 8
+
+
+def _weighted(seed, density=0.15, m=M, n=N):
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((m, n)) < density, rng.normal(size=(m, n)),
+                 0.0).astype(np.float32)
+    a[7] = 0.0  # an empty row
+    return a
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize("k", [2, 48])
+def test_k3_plain_matches_pallas_interpret(k):
+    a = _weighted(k)
+    rng = np.random.default_rng(k + 1)
+    jcoo = JBlockCOO.from_dense(a, *BLOCK, pad_to=40)
+    coo = BlockCOO.from_dense(a, *BLOCK, pad_to=40, device="cpu")
+    for name in ("rows", "cols", "blocks"):
+        np.testing.assert_array_equal(getattr(coo, name).numpy(),
+                                      np.asarray(getattr(jcoo, name)))
+    assert coo.shape == jcoo.shape and coo.nnzb == jcoo.nnzb == 40
+    b = rng.normal(size=(coo.shape[0], k)).astype(np.float32)
+    c = rng.normal(size=(k, coo.shape[1])).astype(np.float32)
+    want = j_k3(jcoo.rows, jcoo.cols, jcoo.blocks, jnp.asarray(b),
+                jnp.asarray(c), bk=k, interpret=True)
+    before = sddmm_blockcoo_kernel.launches
+    got = sddmm_blockcoo_kernel(coo.rows, coo.cols, coo.blocks, _t(b), _t(c))
+    assert sddmm_blockcoo_kernel.launches == before  # plain version on CPU
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+    # the weighted mask: Y = A ⊙ (B C) at A's blocks
+    out = sddmm_blockcoo(coo, _t(b), _t(c))
+    np.testing.assert_allclose(out.to_dense()[:M, :N],
+                               a * (b @ c)[:M, :N], **TOL)
+
+
+@pytest.mark.parametrize("k", [2, 48])
+def test_k4_plain_matches_pallas_interpret(k):
+    a = _weighted(k, density=0.05)
+    rng = np.random.default_rng(k + 2)
+    jsell = JSellCS.from_dense(a, block=BLOCK)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    bm, bn = BLOCK
+    mask = (sell.tile_slot_map < sell.n_slots).float()
+    b_perm = rng.normal(size=(sell.n_live_block_rows * bm, k)) \
+        .astype(np.float32)
+    c = rng.normal(size=(k, -(-N // bn) * bn)).astype(np.float32)
+    want = j_k4(jsell.tile_rows, jsell.tile_cols,
+                jnp.asarray(mask.numpy()), jnp.asarray(b_perm),
+                jnp.asarray(c), bk=k, interpret=True)
+    before = sddmm_sell_kernel.launches
+    got = sddmm_sell_kernel(sell.tile_rows, sell.tile_cols, mask,
+                            _t(b_perm), _t(c))
+    assert sddmm_sell_kernel.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+    # the wrapper's gathers: slot-ordered dots, padding slots read zero
+    b = rng.normal(size=(M, k)).astype(np.float32)
+    c = rng.normal(size=(k, N)).astype(np.float32)
+    np.testing.assert_allclose(
+        sample_sell_blocked(sell, _t(b), _t(c)).numpy(),
+        np.asarray(j_sample_sell(jsell, jnp.asarray(b), jnp.asarray(c),
+                                 interpret=True)), **KERNEL_TOL)
+
+
+def test_sample_sell_without_live_tiles_is_zero():
+    sell = SellCS.from_dense(np.zeros((20, 20), np.float32), block=BLOCK,
+                             device="cpu")
+    out = sample_sell_blocked(sell, torch.ones(20, 2), torch.ones(2, 20))
+    assert out.shape == (sell.n_slots,) and not bool(out.any())
+
+
+def _graph_adjacency(kind, n=256):
+    rng = np.random.default_rng(7)
+    if kind == "ell":  # uniform density 0.1
+        return (rng.random((n, n)) < 0.1).astype(np.float32)
+    if kind == "sell":  # skewed, > 99 % sparse
+        return random_graph(n, 1.0, seed=1)
+    return (rng.random((n, n)) < 0.01).astype(np.float32)  # csr
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell", "csr"])
+def test_front_end_on_graphs_matches_reference(kind):
+    adj = _graph_adjacency(kind)
+    rng = np.random.default_rng(3)
+    b = rng.normal(size=(256, 2)).astype(np.float32)
+    c = rng.normal(size=(2, 256)).astype(np.float32)
+    jg = j_build_graph(adj, J_SMOKE)
+    want = j_sddmm(jg.adj, jnp.asarray(b), jnp.asarray(c),
+                   candidates=j_graph_candidates(jg.adj))
+    graph = build_graph(adj, SMOKE_CONFIG, device="cpu")
+    clear_log()
+    got = ops.sddmm(graph.adj, _t(b), _t(c),
+                    candidates=graph_candidates(graph.adj))
+    (plan,) = dispatch_log()
+    assert plan.op == "sddmm" and plan.path == kind
+    assert got.formats == want.formats == (kind,)
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                               **TOL)
+    # the plan is memoized per matrix: a second call hits it
+    hits = graph.adj.plan_cache.hits
+    ops.sample(graph.adj, _t(b), _t(c),
+               candidates=graph_candidates(graph.adj))
+    assert graph.adj.plan_cache.hits == hits + 1
+
+
+@pytest.mark.parametrize("path", ["ell", "sell", "csr", "dense"])
+@pytest.mark.parametrize("k", [2, 48])
+def test_front_end_forced_paths_match_reference(path, k):
+    a = _weighted(k + 5, density=0.1)
+    rng = np.random.default_rng(k)
+    b = rng.normal(size=(M, k)).astype(np.float32)
+    c = rng.normal(size=(k, N)).astype(np.float32)
+    formats = ("ell", "sell", "csr")
+    want = j_sddmm(JSparseMatrix.from_dense(a, formats=formats, block=BLOCK),
+                   jnp.asarray(b), jnp.asarray(c), policy=path)
+    got = SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                  device="cpu").sddmm(_t(b), _t(c),
+                                                      policy=path)
+    assert got.formats == want.formats
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                               **TOL)
+    np.testing.assert_allclose(got.to_dense(), a * (b @ c), **TOL)
+
+
+def test_coo_form_samples_on_the_ell_path():
+    a = _weighted(11)
+    rng = np.random.default_rng(11)
+    b = rng.normal(size=(M, 2)).astype(np.float32)
+    c = rng.normal(size=(2, N)).astype(np.float32)
+    mat = SparseMatrix.from_dense(a, formats=("coo",), block=BLOCK,
+                                  device="cpu")
+    assert ops.available_paths(mat) == ("ell", "dense")
+    want = j_sddmm(JSparseMatrix.from_dense(a, formats=("coo",),
+                                            block=BLOCK),
+                   jnp.asarray(b), jnp.asarray(c), policy="ell")
+    got = ops.sddmm(mat, _t(b), _t(c), policy="ell")
+    assert got.formats == ("coo",)
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                               **TOL)
+    np.testing.assert_allclose(mat.to_dense(), a)
+
+
+def test_pattern_with_data_and_to():
+    a = _weighted(12)
+    mat = SparseMatrix.from_dense(a, formats=("ell", "csr"), block=BLOCK,
+                                  device="cpu")
+    csr = mat.to("csr")
+    assert csr.formats == ("csr",) and csr.plan_cache is mat.plan_cache
+    patt = csr.pattern()
+    np.testing.assert_array_equal(patt.to_dense(), (a != 0).astype(a.dtype))
+    doubled = patt.with_data(2 * patt.data)
+    np.testing.assert_array_equal(doubled.to_dense(), 2 * (a != 0))
+    assert mat.to("coo").formats == ("coo",)
+    np.testing.assert_allclose(mat.to("coo").to_dense(), a)
+    np.testing.assert_allclose(mat.to("dense").numpy(), a)
+    assert ops.sample is ops.sddmm
+
+
+def test_front_end_rejects_bad_operands():
+    mat = SparseMatrix.from_dense(_weighted(13), block=BLOCK, device="cpu")
+    with pytest.raises(ValueError, match="rows"):
+        ops.sddmm(mat, torch.ones(M + 1, 2), torch.ones(2, N))
+    with pytest.raises(ValueError, match="columns"):
+        ops.sddmm(mat, torch.ones(M, 2), torch.ones(2, N + 1))
+    with pytest.raises(ValueError, match="inner dims"):
+        ops.sddmm(mat, torch.ones(M, 2), torch.ones(3, N))
+    with pytest.raises(TypeError):
+        ops.sddmm(mat, np.ones((M, 2)), torch.ones(2, N))
