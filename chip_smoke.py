@@ -11,7 +11,10 @@ Phases, each of which must pass or the script exits non-zero:
      small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
      with bias and residual; K3/K4 at K = 2 and 48 (K3 with a weighted
      mask); K7/K8 at dk = 2 and 48, D = 16 and 48, with edge-less rows
-     and all three edge activations.
+     and all three edge activations; K9 in f32 and bf16 at S = 256, GQA
+     8:2, D = 64 and 256, blocks (64, 64), (64, 32) and (128, 64),
+     windows 0 and 64, causal and not, and a custom ELL pattern with
+     invalid slots and fully masked rows (exactly 0).
   3. On two graphs of N = 16384 nodes at the paper's full width
      (``CONFIG``: 256 -> 128 -> 128 -> 16, 64 x 64 blocks, numpy-seeded He
      weights), each packed once and used by every path below:
@@ -35,24 +38,46 @@ Phases, each of which must pass or the script exits non-zero:
             held to a dense f32 masked-softmax oracle, and one request
             with ``fuse=False`` (no kernel: it samples on the csr
             pattern) held to the fused logits.
-  4. A JSON line of the kernels, the card line, and the final JSON line.
+  4. Block-sparse attention at gemma3-4b width (the port's
+     ``configs.gemma3_4b.CONFIG``: 8 q heads on 4 kv heads, head dim 256,
+     window 1024, 512 x 512 blocks), batch 1, q, k and v standard normal
+     from numpy (seed ``SEED``), scores scaled by 1/√D.  With the launch
+     counts set to 0 just before and read just after each call, one
+     ``block_sparse_flash_attention`` (K9 x1):
+       (i)  S = 32768, window 1024: held to K9's plain version and to the
+            port's ``local_block_attention`` in f32 on the same inputs (an
+            independent oracle);
+       (ii) S = 8192, window 0 (full causal): held to the plain version
+            and to the port's ``flash_attention`` in f32;
+     each in bf16 and then in f32.  Every output row is held to its own
+     norm; f32 besides to 1e-4 x max|want|, and bf16 element by element
+     to the plain version (rtol 1e-2, atol 2e-3).
+     Each timed beside its bound (the live query-key pairs at the
+     dtype's peak), the plain version and
+     ``scaled_dot_product_attention`` (the dense ELL mask at (i),
+     ``is_causal`` at (ii); printed here, never called by the port).
+  5. A JSON line of the kernels, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32 FLOP/s
 # outside the tensor cores.  Bounds are stated against these, at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 # logits (and SDDMM values) vs the dense oracle, relative to their own
 # scale: |got - want| <= ORACLE_RTOL * max|want| + ORACLE_ATOL (f32 sums
 # over up to 16384 terms, and for GAT the softmax's exp, taken in
@@ -60,9 +85,24 @@ PEAK_FP32_FLOP_PER_S = 67e12
 ORACLE_RTOL = 1e-4
 ORACLE_ATOL = 1e-7
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs its plain version
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # K9 in bf16 vs its plain version
+# phase 4 outputs.  Every row, in both dtypes, against the plain version
+# and the f32 oracle: ||got_r - want_r|| <= ATTN_ROW_RTOL * ||want_r|| +
+# ATTN_ATOL, so a late row that averages thousands of small values is held
+# to its own scale.  f32, besides: |got - want| <= ATTN_F32_RTOL * max|want|
+# + ATTN_ATOL (the same sums in another order).  bf16 (p and the output
+# rounded to bf16), besides, element by element against the plain version,
+# which rounds the same way: ATTN_BF16_TOL (one bf16 ulp is at most
+# 2^-7 |x|).
+ATTN_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+ATTN_F32_RTOL = 1e-4
+ATTN_BF16_TOL = dict(rtol=1e-2, atol=2e-3)
+ATTN_ATOL = 1e-6
 REQUESTS = 8
 SEED = 0
 N_NODES = 16384
+S_LOCAL = 32768   # phase 4 (i): the prefill_32k length, local-layer window
+S_GLOBAL = 8192   # phase 4 (ii): the global-layer mask (full causal)
 DEVICE = "cuda"
 
 KERNELS = {
@@ -84,6 +124,8 @@ KERNELS = {
            "src/repro/kernels/fused/attention.py:99"),
     "K8": ("fused_attn_sell_kernel", "src/repro_torch/csrc/fused_attention.cu",
            "src/repro/kernels/fused/attention.py:281"),
+    "K9": ("bsattn_kernel", "src/repro_torch/csrc/bsattn.cu",
+           "src/repro/kernels/bsattn/kernel.py:93"),
 }
 ACTS = ("identity", "relu", "leaky_relu")
 
@@ -104,12 +146,16 @@ class Port:
     """The port's modules, imported once ``src/`` is on the path."""
 
     def __init__(self):
-        from repro_torch.configs import paper_gnn
+        from repro_torch.configs import gemma3_4b, paper_gnn
+        from repro_torch.core import attention as lm_attention
         from repro_torch.core.formats import BlockELL, SellCS
         from repro_torch.data.pipeline import random_graph
         from repro_torch.dispatch import dispatcher
         from repro_torch.core.formats import BlockCOO
         from repro_torch.kernels import _build
+        from repro_torch.kernels.bsattn import kernel as bsattn_kernel
+        from repro_torch.kernels.bsattn import ops as bsattn_ops
+        from repro_torch.kernels.bsattn import ref as bsattn_ref
         from repro_torch.kernels.fused import attention
         from repro_torch.kernels.fused import spmm as fused
         from repro_torch.kernels.fused.epilogue import Epilogue
@@ -122,6 +168,10 @@ class Port:
         from repro_torch.sparse import ops, paths
 
         self.cfg = paper_gnn.CONFIG
+        self.lm_cfg = gemma3_4b.CONFIG
+        self.lm_attention = lm_attention
+        self.bsattn, self.bsattn_kernel = bsattn_ops, bsattn_kernel
+        self.dense_mask_from_ell = bsattn_ref.dense_mask_from_ell
         self.random_graph = random_graph
         self.BlockELL, self.SellCS, self.BlockCOO = BlockELL, SellCS, BlockCOO
         self.build = _build
@@ -140,6 +190,7 @@ class Port:
             "K4": sddmm_sell.sddmm_sell_kernel,
             "K7": attention.fused_attn_blockell_kernel,
             "K8": attention.fused_attn_sell_kernel,
+            "K9": bsattn_kernel.bsattn_kernel,
         }
 
     def reset_counts(self):
@@ -167,9 +218,9 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_FP32_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -298,6 +349,53 @@ def ragged_checks_sddmm_attention(torch, np, port):
             log(f"ragged m={m} dk={dk} d={d} ({', '.join(ACTS)}; edge-less "
                 "rows exactly 0): max_abs_err "
                 + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+
+
+def ragged_checks_bsattn(torch, np, port):
+    """Phase 2 for K9: f32 and bf16, D = 64 and 256, GQA 8:2, every block
+    pair, window and causal flag, and a custom ELL pattern."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 4)
+    s, bh, bkv = 256, 8, 2
+    k9, plain = port.wrappers["K9"], port.bsattn_kernel.bsattn_ref
+    # block-row 1 has no valid slot; block-row 2's only block lies above
+    # the diagonal: rows 64..191 are fully masked and must be exactly 0
+    ell_c = torch.tensor([[0, 2, 3], [1, 0, 0], [3, 3, 1], [2, 0, 3]],
+                         dtype=torch.int32, device=dev)
+    val_c = torch.tensor([[1, 0, 1], [0, 0, 0], [1, 0, 0], [1, 1, 1]],
+                         dtype=torch.int32, device=dev)
+    for dtype, tol in ((torch.float32, KERNEL_TOL), (torch.bfloat16,
+                                                     BF16_TOL)):
+        for d in (64, 256):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (n, s, d), dtype=np.float32)).to(dev, dtype)
+                for n in (bh, bkv, bkv))
+            worst, n_cases = 0.0, 0
+            for (bq, bk), window, causal in itertools.product(
+                    ((64, 64), (64, 32), (128, 64)), (0, 64), (True, False)):
+                ell, val = (torch.from_numpy(a).to(dev)
+                            for a in port.bsattn.banded_ell(s, bq, bk, window))
+                kw = dict(block_q=bq, block_kv=bk, causal=causal,
+                          window=window)
+                worst = max(worst, check_close(
+                    torch, f"K9 ragged {dtype} d={d} blocks=({bq}, {bk}) "
+                    f"window={window} causal={causal}",
+                    k9(ell, val, q, k, v, **kw).float(),
+                    plain(ell, val, q, k, v, scale=1 / math.sqrt(d),
+                          **kw).float(), tol))
+                n_cases += 1
+            kw = dict(block_q=64, block_kv=64, causal=True, window=0)
+            got = k9(ell_c, val_c, q, k, v, **kw)
+            worst = max(worst, check_close(
+                torch, f"K9 custom pattern {dtype} d={d}", got.float(),
+                plain(ell_c, val_c, q, k, v, scale=1 / math.sqrt(d),
+                      **kw).float(), tol))
+            if bool(got[:, 64:192].any()):
+                raise AssertionError("K9: fully masked rows are not 0")
+            log(f"ragged K9 {str(dtype).split('.')[-1]} S={s} GQA {bh}:{bkv} "
+                f"d={d}: {n_cases} banded cases + custom pattern (fully "
+                f"masked rows exactly 0), max_abs_err {worst:.3e} (tol "
+                f"{tol})")
 
 
 def normalized_dense(np, adj):
@@ -726,6 +824,175 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     return rows
 
 
+def live_pairs(np, ell, val, block_q, block_kv, window) -> int:
+    """Causal query-key pairs per head that the valid ELL slots and the
+    window (``window > 0``) allow: the work this data needs."""
+    total = 0
+    qpos = np.arange(block_q)
+    for qi, (slots, ok) in enumerate(zip(ell, val)):
+        hi = qi * block_q + qpos
+        lo = hi - window + 1 if window > 0 else np.zeros_like(hi)
+        for ki in slots[ok > 0]:
+            k0 = int(ki) * block_kv
+            total += int(np.clip(np.minimum(hi, k0 + block_kv - 1)
+                                 - np.maximum(lo, k0) + 1, 0, None).sum())
+    return total
+
+
+def hold_attention(torch, what, got, want, dtype_name, same_rounding):
+    """``got`` finite, of ``want``'s shape and within the phase 4
+    tolerances of it (element by element in bf16 only where ``want``
+    rounds as K9 does); returns the largest element error."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or "
+                             "non-finite values")
+    diff = got - want
+    err = float(diff.abs().max())
+    row_err = torch.linalg.vector_norm(diff, dim=-1)
+    row_want = torch.linalg.vector_norm(want, dim=-1)
+    row_rtol = ATTN_ROW_RTOL[dtype_name]
+    worst_row = float((row_err / row_want.clamp_min(1e-30)).max())
+    faults = []
+    if not bool((row_err <= row_rtol * row_want + ATTN_ATOL).all()):
+        faults.append(f"a row is off by {worst_row:.3e} of its norm "
+                      f"(tol {row_rtol:.0e})")
+    if dtype_name == "float32":
+        tol = ATTN_F32_RTOL * float(want.abs().max()) + ATTN_ATOL
+        text = f"tol {tol:.3e}"
+        if err > tol:
+            faults.append(f"max_abs_err {err:.3e} > {tol:.3e}")
+    elif same_rounding:
+        text = f"tol {ATTN_BF16_TOL} element by element"
+        if not torch.allclose(got, want, **ATTN_BF16_TOL):
+            ratio = float((diff.abs() / (ATTN_BF16_TOL["atol"]
+                          + ATTN_BF16_TOL["rtol"] * want.abs())).max())
+            faults.append(f"an element is {ratio:.2f}x its tolerance "
+                          f"{ATTN_BF16_TOL}")
+    else:
+        text = "rows only (p rounds to bf16 here, not in the oracle)"
+    if faults:
+        raise AssertionError(f"{what}: " + "; ".join(faults))
+    log(f"  {what}: max_abs_err {err:.3e} (max|want| "
+        f"{float(want.abs().max()):.3e}, {text}); worst row "
+        f"{worst_row:.3e} of its norm (tol {row_rtol:.0e})")
+    return err
+
+
+def bsattn_phase(torch, np, port):
+    """Phase 4: block-sparse attention at gemma3-4b width through the
+    entry point; returns K9's row at (i) in bf16, with launches."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dev = torch.device(DEVICE)
+    cfg = port.lm_cfg
+    h, hkv, d, blk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.attn_block
+    scale = 1 / math.sqrt(d)
+    fused_sdpa = [SDPBackend.FLASH_ATTENTION,
+                  SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    rng = np.random.default_rng(SEED)
+    k9_row = None
+    for label, s, window in (("i", S_LOCAL, cfg.window), ("ii", S_GLOBAL, 0)):
+        x32 = [torch.from_numpy(rng.standard_normal(
+            (n, s, d), dtype=np.float32)).to(dev) for n in (h, hkv, hkv)]
+        ell_np, val_np = port.bsattn.banded_ell(s, blk, blk, window)
+        ell, val = (torch.from_numpy(a).to(dev) for a in (ell_np, val_np))
+        pairs = live_pairs(np, ell_np, val_np, blk, blk, window)
+        flops = 4 * d * pairs * h  # 2D for q.k and 2D for p.v per pair
+        kw = dict(block_q=blk, block_kv=blk, causal=True, window=window)
+        shape = (f"({label}) S={s} window={window} blocks {blk}x{blk} "
+                 f"H={h} Hkv={hkv} D={d}, W={ell_np.shape[1]} slots "
+                 f"({int(val_np.sum())} valid), {pairs} live pairs per "
+                 f"head")
+        if label == "i":
+            sdpa_kw = dict(attn_mask=torch.from_numpy(
+                port.dense_mask_from_ell(ell_np, val_np, s, blk, blk,
+                                         causal=True, window=window)).to(dev))
+        else:
+            sdpa_kw = dict(is_causal=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v = (t.to(dtype) for t in x32)
+            torch.cuda.synchronize()
+            port.reset_counts()
+            t0 = time.perf_counter()
+            out = port.bsattn.block_sparse_flash_attention(
+                q, k, v, window=window, block_q=blk, block_kv=blk)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = port.counts()
+            log(f"bsattn {shape} {name}: entry point {wall:.3f} ms (first "
+                f"call), launches {counts}")
+            if counts != expected(port, {"K9": 1}, 1):
+                raise AssertionError(f"bsattn ({label}) {name}: launch "
+                                     f"counts {counts}, expected K9 x1")
+            qf, kf, vf = (t.float().transpose(0, 1)[None]
+                          for t in (q, k, v))  # [1, S, H, D]
+            if label == "i":
+                oracle = port.lm_attention.local_block_attention(
+                    qf, kf, vf, window=window, block=blk)
+                oracle_name = "local_block_attention"
+            else:
+                oracle = port.lm_attention.flash_attention(
+                    qf, kf, vf, causal=True, q_chunk=blk, kv_chunk=blk)
+                oracle_name = "flash_attention(causal)"
+            del qf, kf, vf
+            oracle = oracle[0].transpose(0, 1)
+            run = lambda: port.wrappers["K9"](ell, val, q, k, v, **kw)
+            plain = lambda: port.bsattn_kernel.bsattn_ref(
+                ell, val, q, k, v, scale=scale, **kw)
+            err = hold_attention(torch, f"({label}) {name} vs plain version",
+                                 out, plain(), name, same_rounding=True)
+            hold_attention(torch, f"({label}) {name} vs f32 {oracle_name} "
+                           "(independent oracle)", out, oracle, name,
+                           same_rounding=False)
+            del oracle
+            row = dict(max_abs_err=err, ms=time_ms(torch, run),
+                       plain_ms=time_ms(torch, plain), library_ms=None)
+            if dtype == torch.bfloat16:
+                with sdpa_kernel(fused_sdpa), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    library = lambda: \
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q[None], k[None], v[None], enable_gqa=True,
+                            **sdpa_kw)
+                    lib_err = float((library()[0].float() - out.float())
+                                    .abs().max())
+                    row["library_ms"] = time_ms(torch, library)
+                lib = (f"{row['library_ms']:.4f} ms (max_abs_err vs K9 "
+                       f"{lib_err:.3e})")
+            else:
+                lib = "not timed (no fused SDPA backend takes f32 with GQA)"
+            nbytes = (2 * h + 2 * hkv) * s * d * q.element_size() \
+                + 2 * ell.numel() * 4
+            peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+                else PEAK_FP32_FLOP_PER_S
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
+            entry = time_ms(torch, lambda: port.bsattn
+                            .block_sparse_flash_attention(
+                                q, k, v, window=window, block_q=blk,
+                                block_kv=blk))
+            log(f"K9 [{shape} {name}]: kernel {row['ms']:.4f} ms | entry "
+                f"point {entry:.4f} ms | plain {row['plain_ms']:.4f} ms | "
+                f"SDPA {lib} | bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}: {nbytes / 1e9:.3f} GB, "
+                f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s; "
+                f"{flops / PEAK_FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 "
+                f"FFMA peak; kernel at "
+                f"{flops / row['ms'] / 1e9:.2f} TFLOP/s)")
+            if label == "i" and dtype == torch.bfloat16:
+                row["launches"] = counts["K9"]
+                k9_row = row
+            del q, k, v, out
+        del x32, sdpa_kw
+        torch.cuda.empty_cache()
+    log(f"bsattn peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"K9": k9_row}
+
+
 def main() -> int:
     import torch
 
@@ -764,6 +1031,7 @@ def main() -> int:
 
     ragged_checks(torch, np, port)
     ragged_checks_sddmm_attention(torch, np, port)
+    ragged_checks_bsattn(torch, np, port)
 
     n = N_NODES
     rng = np.random.default_rng(SEED)
@@ -777,6 +1045,10 @@ def main() -> int:
     rows.update(serve_graph(torch, np, port,
                             f"b: random_graph({n}, 16, seed=1)", adj_b,
                             "sell", {"K1": 0, "K2": 1, "K5": 0, "K6": 2}))
+    del adj_b
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows.update(bsattn_phase(torch, np, port))
 
     kernels = []
     for name in sorted(KERNELS):

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("spmm_blockell", "spmm_sell", "sddmm", "fused_attention")
+SOURCES = ("spmm_blockell", "spmm_sell", "sddmm", "fused_attention",
+           "bsattn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,7 @@ _SIGNATURES = {
     "spmm_sell": ("spmm_sell_f32", [_P] * 7 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles_f32", [_P] * 6 + [_I] * 5 + [_P]),
     "fused_attention": ("fused_attn_f32", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
 
 _LOCK = threading.Lock()
