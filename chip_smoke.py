@@ -9,7 +9,8 @@ Phases, each of which must pass or the script exits non-zero:
      versions, and the build of every CUDA kernel from ``csrc/``.
   2. Kernels against their plain PyTorch versions on the card, at ragged
      small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
-     with bias and residual; K3/K4 at K = 2 and 48 (K3 with a weighted
+     with bias and residual (K2/K6 on their slot operands, held besides
+     to the tile-granular plain versions of the same matrix); K3/K4 at K = 2 and 48 (K3 with a weighted
      mask); K7/K8 at dk = 2 and 48, D = 16 and 48, with edge-less rows
      and all three edge activations; K9 in f32 and bf16 at S = 256, GQA
      8:2, D = 64 and 256, blocks (64, 64), (64, 32) and (128, 64),
@@ -27,11 +28,15 @@ Phases, each of which must pass or the script exits non-zero:
      the same function where there is one (``torch.sparse.mm`` for the
      SpMM kernels, ``torch.sparse.sampled_addmm`` for the SDDMM ones;
      printed here, never called by the port) and beside its bound from
-     bytes and the FP32 operations its nonzeros need.  Then, with the
-     kernel launch counts set to 0 just before and read just after:
+     bytes and the FP32 operations its nonzeros need (K2/K6: the two row
+     arrays, each nonzero's column and value, H and Y; K2/K6 also with
+     every row cut to the p99 count, to show what the heaviest rows
+     cost).  Then, with the kernel launch counts set to 0 just before and
+     read just after:
        GCN: 8 requests through ``GNNServingEngine``, logits held to a
             dense f32 oracle (TF32 off), and one request with
-            ``fuse=False``;
+            ``fuse=False``; one more request profiled, which must call
+            neither ``sell_tile_blocks`` nor ``sell_row_ptr``;
        SDDMM: one ``repro_torch.sparse.ops.sddmm`` call at K = 2, its
             plan and values held to a dense f32 oracle of A ⊙ (B C);
        GAT: 8 requests through ``GNNServingEngine(model="gat")``, logits
@@ -63,6 +68,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -104,6 +110,10 @@ N_NODES = 16384
 S_LOCAL = 32768   # phase 4 (i): the prefill_32k length, local-layer window
 S_GLOBAL = 8192   # phase 4 (ii): the global-layer mask (full causal)
 DEVICE = "cuda"
+# ≈ 0.5 ms of the card's clock cycles (about 1 GHz or more under load):
+# longer than a wrapper's host work, so a timed call's launches queue
+# behind it
+HOST_COVER_CYCLES = 1_000_000
 
 KERNELS = {
     "K1": ("spmm_blockell_kernel", "src/repro_torch/csrc/spmm_blockell.cu",
@@ -148,7 +158,8 @@ class Port:
     def __init__(self):
         from repro_torch.configs import gemma3_4b, paper_gnn
         from repro_torch.core import attention as lm_attention
-        from repro_torch.core.formats import BlockELL, SellCS
+        from repro_torch.core.formats import (SELL_HEAVY_ROW_NNZ, BlockELL,
+                                              SellCS)
         from repro_torch.data.pipeline import random_graph
         from repro_torch.dispatch import dispatcher
         from repro_torch.core.formats import BlockCOO
@@ -174,6 +185,7 @@ class Port:
         self.dense_mask_from_ell = bsattn_ref.dense_mask_from_ell
         self.random_graph = random_graph
         self.BlockELL, self.SellCS, self.BlockCOO = BlockELL, SellCS, BlockCOO
+        self.heavy_nnz = SELL_HEAVY_ROW_NNZ
         self.build = _build
         self.fused, self.ref, self.sell = fused, ref, sell
         self.attention = attention
@@ -202,7 +214,11 @@ class Port:
 
 
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Median device time of one call, from CUDA events around each."""
+    """Median device time of one call, from CUDA events around each.  The
+    card first spins for ``HOST_COVER_CYCLES`` (``torch.cuda._sleep``), so
+    the call's launches are queued before the start event is reached: a
+    kernel shorter than its wrapper's host work is timed on the device,
+    not at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -210,6 +226,7 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start.record()
         fn()
         end.record()
@@ -261,28 +278,40 @@ def ragged_checks(torch, np, port):
                 port.wrappers["K5"](*ops, *tail, epi=epi),
                 port.fused.spmm_blockell_epilogue_ref(*ops, *tail, epi=epi)),
         }
-        # SELL: K2, and K6 with leaky_relu + bias + residual
+        # SELL: K2, and K6 with leaky_relu + bias + residual, on their
+        # slot operands; held to their plain versions and to the
+        # tile-granular plain versions of the same matrix
         a = np.where(rng.random((m, m)) < 0.003, rng.standard_normal((m, m)),
                      0).astype(np.float32)
         sell = port.SellCS.from_dense(a, block=(bm, bm), device=dev)
+        h = torch.randn(m, d, device=dev)
+        ops = (*port.sell.sell_row_operands(sell), h)
         kw = dict(n_live_block_rows=sell.n_live_block_rows)
-        ops = (sell.tile_rows, sell.tile_cols,
-               port.sell.sell_tile_blocks(sell),
-               torch.randn(-(-m // bm) * bm, d, device=dev))
+        tiles = (sell.tile_rows, sell.tile_cols,
+                 port.sell.sell_tile_blocks(sell),
+                 torch.nn.functional.pad(h, (0, 0, 0, -(-m // bm) * bm - m)))
         epi = port.Epilogue(act="leaky_relu", negative_slope=0.2,
                             has_bias=True, has_residual=True)
         tail = (torch.randn(d, device=dev),
                 torch.randn(sell.n_live_block_rows * bm, d, device=dev))
-        errs["K2"] = check_close(torch, f"K2 ragged d={d}",
-                                 port.wrappers["K2"](*ops, **kw),
-                                 port.sell.spmm_sell_tiles_ref(*ops, **kw))
+        heavy = dict(heavy_rows=sell.tile_heavy_rows)
+        got = port.wrappers["K2"](*ops, **heavy)
+        errs["K2"] = check_close(torch, f"K2 ragged d={d}", got,
+                                 port.sell.spmm_sell_slots_ref(*ops))
+        check_close(torch, f"K2 ragged d={d} vs tiles", got,
+                    port.sell.spmm_sell_tiles_ref(*tiles, **kw))
+        got = port.wrappers["K6"](*ops, *tail, epi=epi, **heavy)
         errs["K6"] = check_close(
-            torch, f"K6 ragged d={d}",
-            port.wrappers["K6"](*ops, *tail, epi=epi, **kw),
-            port.fused.spmm_sell_epilogue_ref(*ops, *tail, epi=epi, **kw))
+            torch, f"K6 ragged d={d}", got,
+            port.fused.spmm_sell_epilogue_slots_ref(*ops, *tail, epi=epi))
+        check_close(torch, f"K6 ragged d={d} vs tiles", got,
+                    port.fused.spmm_sell_epilogue_ref(*tiles, *tail, epi=epi,
+                                                      **kw))
         log(f"ragged m={m} d={d} (SELL tiles {sell.n_tiles}, live "
-            f"block-rows {sell.n_live_block_rows}): max_abs_err "
-            + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            f"block-rows {sell.n_live_block_rows}, largest row "
+            f"{int(sell.tile_row_nnz.max())} nonzeros): max_abs_err "
+            + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + " (K2/K6 also held to the tile-granular plain versions)")
 
 
 def ragged_checks_sddmm_attention(torch, np, port):
@@ -424,6 +453,10 @@ def library_csr(torch, graph):
     return torch.sparse_csr_tensor(crow, cols.long(), vals, size=(n, n))
 
 
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def kernel_rows(torch, port, graph, path):
     """Each SpMM kernel of this graph's path at the serving shapes: held to
     its plain version, timed beside it, ``torch.sparse.mm`` and its
@@ -434,63 +467,124 @@ def kernel_rows(torch, port, graph, path):
     relu = port.Epilogue(act="relu")
     if path == "ell":
         ell = graph.adj.form("ell")
-        n_pad, slots, (bm, bn) = ell.shape[1], int(ell.nblocks.sum()), \
-            (ell.bm, ell.bn)
-        fixed, kw = (ell.indices, ell.blocks), {}
-        shape = f"nbr={ell.n_block_rows} W={ell.ell_width} block={bm}x{bn}"
+        n_h, (bm, bn) = ell.shape[1], (ell.bm, ell.bn)
+        slots = int(ell.nblocks.sum())
+        fixed, n_out_rows = (ell.indices, ell.blocks), ell.shape[0]
+        # the work this data needs: one multiply-add per nonzero of the
+        # blocks and column of H (the dense tile work is printed apart)
+        nnz = int((ell.blocks != 0).sum())
+        fixed_bytes = nbytes_of(*fixed)
+        shape = (f"nbr={ell.n_block_rows} W={ell.ell_width} block={bm}x{bn}"
+                 f"; {nnz} nonzeros")
         plain = {"K1": port.ref.spmm_blockell_ref,
                  "K5": port.fused.spmm_blockell_epilogue_ref}
         specs = [("K5", cfg.hidden, relu), ("K1", cfg.n_classes, None)]
     else:
         sell = graph.adj.form("sell")
-        n_pad, slots, (bm, bn) = -(-sell.shape[1] // sell.bn) * sell.bn, \
-            sell.n_tiles, sell.block
-        fixed = (sell.tile_rows, sell.tile_cols,
-                 port.sell.sell_tile_blocks(sell))
-        kw = dict(n_live_block_rows=sell.n_live_block_rows)
-        shape = (f"T={sell.n_tiles} live_block_rows="
-                 f"{sell.n_live_block_rows} block={bm}x{bn}")
-        plain = {"K2": port.sell.spmm_sell_tiles_ref,
-                 "K6": port.fused.spmm_sell_epilogue_ref}
+        n_h = sell.shape[1]  # K2/K6 take H's logical rows
+        fixed = port.sell.sell_row_operands(sell)
+        row_slot, row_nnz = fixed[:2]
+        heavy = sell.tile_heavy_rows
+        n_out_rows = row_slot.shape[0]
+        nnz = int(row_nnz.sum())
+        # what K2/K6 read: the row arrays and each nonzero's column and
+        # value (padding slots are never read), then H and Y
+        fixed_bytes = nbytes_of(row_slot, row_nnz, heavy) + nnz * (
+            fixed[2].element_size() + fixed[3].element_size())
+        counts = row_nnz.float()
+        p99 = int(torch.quantile(counts[counts > 0], 0.99))
+        shape = (f"rows={n_out_rows} ({sell.n_live_block_rows} live "
+                 f"block-rows of {sell.bm}); {nnz} nonzeros; nonzeros per "
+                 f"row: mean {float(counts.mean()):.1f}, p99 {p99}, largest "
+                 f"{int(row_nnz.max())}; {heavy.shape[0]} rows above "
+                 f"{port.heavy_nnz} get a CTA each")
+        plain = {"K2": port.sell.spmm_sell_slots_ref,
+                 "K6": port.fused.spmm_sell_epilogue_slots_ref}
         specs = [("K6", cfg.hidden, relu), ("K2", cfg.n_classes, None)]
     a_lib = library_csr(torch, graph)
-    # the work this data needs: one multiply-add per nonzero of the
-    # blocks / tiles and column of H (the dense tile work is printed apart)
-    nnz = int((fixed[-1] != 0).sum())
     rows = {}
     for name, d, epi in specs:
-        h = torch.randn(n_pad, d, device=dev, generator=gen)
+        h = torch.randn(n_h, d, device=dev, generator=gen)
         args = (*fixed, h) if epi is None else (*fixed, h, None, None)
-        kwargs = dict(kw) if epi is None else dict(kw, epi=epi)
-        n_out = (fixed[0].shape[0] * bm if path == "ell"
-                 else kw["n_live_block_rows"] * bm) * d
-        nbytes = sum(t.numel() * t.element_size() for t in (*fixed, h)) \
-            + n_out * 4
-        tile_flops = 2 * slots * bm * bn * d
+        kwargs = {} if epi is None else dict(epi=epi)
+        kernel_kw = kwargs if path == "ell" else dict(kwargs,
+                                                      heavy_rows=heavy)
+        n_out = n_out_rows * d
+        nbytes = fixed_bytes + nbytes_of(h) + n_out * 4
+        if path == "ell":
+            tile_flops = 2 * slots * bm * bn * d
+            what = (f"{shape}; D={d}; dense tile work "
+                    f"{tile_flops / 1e9:.2f} GFLOP, "
+                    f"{tile_flops / PEAK_FP32_FLOP_PER_S * 1e3:.4f} ms at "
+                    "the FP32 peak")
+        else:
+            what = f"{shape}; D={d}"
         rows[name] = measure(
-            torch, name, lambda: port.wrappers[name](*args, **kwargs),
+            torch, name, lambda: port.wrappers[name](*args, **kernel_kw),
             lambda: plain[name](*args, **kwargs),
             lambda: torch.sparse.mm(a_lib, h[: graph.n_nodes]), nbytes,
             2 * nnz * d + (0 if epi is None else n_out),
-            f"{shape} D={d}; {nnz} nonzeros; dense tile work "
-            f"{tile_flops / 1e9:.2f} GFLOP, "
-            f"{tile_flops / PEAK_FP32_FLOP_PER_S * 1e3:.4f} ms at the FP32 "
-            "peak; library: torch.sparse.mm")
+            what + "; library: torch.sparse.mm")
+        if path == "sell":
+            # what do the heaviest rows cost?  The same launch with every
+            # row cut to the p99 count, so none is heavy (a diagnostic,
+            # not a check)
+            cap = min(p99, port.heavy_nnz)
+            cut = (row_slot, torch.clamp(row_nnz, max=cap), *fixed[2:])
+            cut_args = (*cut, *args[len(cut):])
+            cut_ms = time_ms(torch, lambda: port.wrappers[name](
+                *cut_args, **kwargs, heavy_rows=heavy[:0]))
+            log(f"  {name} with every row cut to {cap} nonzeros (none "
+                f"heavy): {cut_ms:.4f} ms")
     return rows
+
+
+TILE_VIEW_HELPERS = ("sell_tile_blocks", "sell_row_ptr")
+
+
+@contextlib.contextmanager
+def count_calls(names):
+    """Count calls of the port's functions ``names`` (every module of
+    ``repro_torch`` that holds one, wrapped while the block runs)."""
+    calls = dict.fromkeys(names, 0)
+    patched = []
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for mod_name, module in list(sys.modules.items()):
+        if mod_name.split(".")[0] != "repro_torch":
+            continue
+        for name in names:
+            fn = getattr(module, name, None)
+            if fn is not None:
+                patched.append((module, name, fn))
+                setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in patched:
+            setattr(module, name, fn)
 
 
 def profile_request(torch, eng, x, label):
     """One more request under ``torch.profiler``: device time by kernel
-    and the device's busy share of the request's wall time."""
+    and the device's busy share of the request's wall time.  Returns the
+    calls of ``TILE_VIEW_HELPERS`` the request made."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof, count_calls(TILE_VIEW_HELPERS) as calls:
         t0 = time.perf_counter()
         eng.infer(x)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    log(f"graph ({label}) profiled request: calls of the tile-view helpers "
+        f"{calls}")
     dev_ms = {}
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
@@ -502,13 +596,14 @@ def profile_request(torch, eng, x, label):
     if not dev_ms:
         log(f"graph ({label}) profile: the profiler saw no device time "
             "(device busy share not measured)")
-        return
+        return calls
     busy = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
     log(f"graph ({label}) profile of one request: wall {wall:.3f} ms under "
         f"the profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f} "
         "%); by device time: "
         + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    return calls
 
 
 def expected(port, per_call, calls):
@@ -615,7 +710,12 @@ def gcn_phase(torch, port, graph, a_dense, label, want_path, expect, xs):
             or err > oracle_tol(outs[0]):
         raise AssertionError(f"graph ({label}) GCN fuse=False run off: "
                              f"{ucounts}, err {err:.3e}")
-    profile_request(torch, eng, xs[0], f"{label}, GCN")
+    calls = profile_request(torch, eng, xs[0], f"{label}, GCN")
+    if any(calls.values()):
+        raise AssertionError(f"graph ({label}) GCN request built tile data "
+                             f"or a row pointer: {calls}")
+    log(f"graph ({label}) GCN request: no sell_tile_blocks gather and no "
+        "row-pointer sync")
     for name in rows:
         rows[name]["launches"] = counts[name]
     return rows

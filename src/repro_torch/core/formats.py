@@ -265,6 +265,9 @@ class BlockCOO:
 # the cost model prices exactly the layout the packer would build).
 SELL_C = 8          # slice height (rows per width-adaptive slice)
 SELL_SIGMA = 0      # sort-window size in rows; 0 = sort the whole matrix
+# rows with more nonzeros than this are listed in ``tile_heavy_rows``: K2
+# and K6 give each a whole CTA instead of a few lanes
+SELL_HEAVY_ROW_NNZ = 128
 
 
 # Geometric width ladder (~1.5x growth): slice widths round *up* onto it,
@@ -333,7 +336,14 @@ class SellCS:
     [T, bm, bn] tile cell -> slot id (``n_slots`` for dead cells);
     ``slot_tile_pos`` int32[n_slots] slot -> flat tile-cell position;
     ``tile_out_gather`` int32[M] original row -> row of the compact kernel
-    output (``n_live*bm`` for pruned rows).
+    output (``n_live*bm`` for pruned rows); ``tile_row_slot`` /
+    ``tile_row_nnz`` int32[n_live*bm] compact output row -> first slot of
+    its packed row and its count of structural nonzeros (0 for padding
+    rows); ``tile_heavy_rows`` int32[n_heavy] the compact rows with more
+    than ``SELL_HEAVY_ROW_NNZ`` nonzeros, ascending.  The nonzeros of a
+    row are its first slots, in ascending column, so K2/K6 read
+    ``slot_cols``/``slot_vals`` through these (derived data the
+    reference does not carry).
 
     Static: ``shape``, slice height ``c``, sort window ``sigma``,
     ``buckets`` ((row_offset, n_rows, width) per width bucket), the tile
@@ -350,6 +360,9 @@ class SellCS:
     tile_slot_map: torch.Tensor
     slot_tile_pos: torch.Tensor
     tile_out_gather: torch.Tensor
+    tile_row_slot: torch.Tensor
+    tile_row_nnz: torch.Tensor
+    tile_heavy_rows: torch.Tensor
     shape: Tuple[int, int]
     c: int
     sigma: int
@@ -461,15 +474,20 @@ class SellCS:
         live = flat < n_slots
         slot_tile_pos[flat[live]] = np.nonzero(live)[0].astype(np.int32)
 
-        # perm: live packed row -> original row (M for padding rows)
+        # perm: live packed row -> original row (M for padding rows); the
+        # nonzero-granular row view over the same compact rows
         perm = np.full(n_live * bm, m, np.int32)
         tile_out_gather = np.full(m, n_live * bm, np.int32)
+        tile_row_slot = np.zeros(n_live * bm, np.int32)
+        tile_row_nnz = np.zeros(n_live * bm, np.int32)
         for i, br in enumerate(live_brs):
             for j in range(bm):
                 p = br * bm + j
                 if p < n_packed and packed_rows[p] < m:
                     perm[i * bm + j] = packed_rows[p]
                     tile_out_gather[packed_rows[p]] = i * bm + j
+                    tile_row_slot[i * bm + j] = slot_start[p]
+                    tile_row_nnz[i * bm + j] = len(row_cols[p])
 
         return SellCS(
             slot_cols=_to(slot_cols, device),
@@ -482,6 +500,11 @@ class SellCS:
             tile_slot_map=_to(tile_slot_map, device),
             slot_tile_pos=_to(slot_tile_pos, device),
             tile_out_gather=_to(tile_out_gather, device),
+            tile_row_slot=_to(tile_row_slot, device),
+            tile_row_nnz=_to(tile_row_nnz, device),
+            tile_heavy_rows=_to(np.nonzero(
+                tile_row_nnz > SELL_HEAVY_ROW_NNZ)[0].astype(np.int32),
+                device),
             shape=(m, n), c=c, sigma=sigma, buckets=tuple(buckets),
             block=(bm, bn), n_live_block_rows=n_live,
         )

@@ -1,7 +1,7 @@
-// Tile loop shared by the Block-ELL (spmm_blockell.cu) and SELL-C-sigma
-// (spmm_sell.cu) SpMM kernels: one CTA owns one (bm x BD) output tile and
-// walks a contiguous range of "slots", each a dense (bm x bn) A block and
-// the block-column of H it multiplies.  A and H tiles are staged in shared
+// Tile loop of the Block-ELL SpMM kernels (spmm_blockell.cu, K1 and K5):
+// one CTA owns one (bm x BD) output tile and walks a contiguous range of
+// "slots", each a dense (bm x bn) A block and the block-column of H it
+// multiplies.  A and H tiles are staged in shared
 // memory, the product is FFMA in f32 (no TF32: the reference tolerances
 // are 1e-4 to 1e-5), and the epilogue act(y + bias + residual) is applied
 // in registers before the only store of the tile.

@@ -32,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "spmm_blockell": ("spmm_blockell_f32",
                       [_P] * 6 + [_I] * 6 + [_F, _P]),
-    "spmm_sell": ("spmm_sell_f32", [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles_f32", [_P] * 6 + [_I] * 5 + [_P]),
     "fused_attention": ("fused_attn_f32", [_P] * 7 + [_I] * 8 + [_F, _P]),
     "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),

@@ -5,7 +5,9 @@ K5 replaces the Pallas kernel ``spmm_blockell_epilogue_kernel`` and K6
 replaces ``spmm_sell_epilogue_kernel``.  They are the CUDA sources of K1
 and K2 (``csrc/spmm_blockell.cu``, ``csrc/spmm_sell.cu``) with
 ``act(y + bias + residual)`` applied in registers before the only store,
-so the raw product never makes a round trip through device memory.
+so the raw product never makes a round trip through device memory.  K6,
+like K2, reads the nonzeros through the row view of ``SellCS``, not
+dense tiles.
 
 Each wrapper runs its plain version (K1's or K2's plain version, then
 ``apply_epilogue``) for CPU tensors and its kernel for CUDA tensors, and
@@ -22,8 +24,8 @@ from repro_torch.core.formats import BlockELL, SellCS
 from repro_torch.kernels.fused.epilogue import Epilogue, apply_epilogue
 from repro_torch.kernels.spmm.kernel import launch_blockell, require_cuda
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
-from repro_torch.kernels.spmm.sell import (launch_sell, pad_h,
-                                           sell_tile_blocks,
+from repro_torch.kernels.spmm.sell import (launch_sell, sell_row_operands,
+                                           spmm_sell_slots_ref,
                                            spmm_sell_tiles_ref)
 
 
@@ -92,25 +94,37 @@ def spmm_blockell_fused(ell: BlockELL, h: torch.Tensor, epi: Epilogue,
 def spmm_sell_epilogue_ref(tile_rows, tile_cols, tile_blocks, h, bias,
                            res_perm, *, epi: Epilogue,
                            n_live_block_rows: int) -> torch.Tensor:
-    """Plain version of K6: the compact act(A @ H + bias + res_perm)."""
+    """Tile-granular plain version of K6 (over ``sell_tile_blocks``): the
+    compact act(A @ H + bias + res_perm)."""
     y = spmm_sell_tiles_ref(tile_rows, tile_cols, tile_blocks, h,
                             n_live_block_rows=n_live_block_rows)
     return apply_epilogue(y, epi, bias, res_perm)
 
 
-def spmm_sell_epilogue_kernel(tile_rows, tile_cols, tile_blocks, h, bias,
-                              res_perm, *, epi: Epilogue,
-                              n_live_block_rows: int) -> torch.Tensor:
-    """K6: compact act(A @ H + bias + res_perm) over the live tiles;
-    ``res_perm`` is the residual in packed row order [n_live*bm, D]."""
+def spmm_sell_epilogue_slots_ref(row_slot, row_nnz, slot_cols, slot_vals,
+                                 h, bias, res_perm, *,
+                                 epi: Epilogue) -> torch.Tensor:
+    """Plain version of K6 over its own operands: the compact
+    act(A @ H + bias + res_perm), [R, D]."""
+    y = spmm_sell_slots_ref(row_slot, row_nnz, slot_cols, slot_vals, h)
+    return apply_epilogue(y, epi, bias, res_perm)
+
+
+def spmm_sell_epilogue_kernel(row_slot, row_nnz, slot_cols, slot_vals, h,
+                              bias, res_perm, *, epi: Epilogue,
+                              heavy_rows) -> torch.Tensor:
+    """K6: compact act(A @ H + bias + res_perm), one row per entry of
+    ``row_slot`` (rows without nonzeros get act(bias + res_perm));
+    ``res_perm`` is the residual in packed row order [R, D];
+    ``heavy_rows`` as for K2."""
     _check_spec(epi, bias, res_perm)
     if h.device.type == "cpu":
-        return spmm_sell_epilogue_ref(tile_rows, tile_cols, tile_blocks, h,
-                                      bias, res_perm, epi=epi,
-                                      n_live_block_rows=n_live_block_rows)
+        return spmm_sell_epilogue_slots_ref(row_slot, row_nnz, slot_cols,
+                                            slot_vals, h, bias, res_perm,
+                                            epi=epi)
     require_cuda(h, "spmm_sell_epilogue_kernel")
-    y = launch_sell(tile_rows, tile_cols, tile_blocks, h, bias, res_perm,
-                    epi, n_live_block_rows, "K6 spmm_sell_epilogue")
+    y = launch_sell(row_slot, row_nnz, slot_cols, slot_vals, h, bias,
+                    res_perm, epi, heavy_rows, "K6 spmm_sell_epilogue")
     spmm_sell_epilogue_kernel.launches += 1
     return y
 
@@ -124,8 +138,8 @@ def spmm_sell_fused(sell: SellCS, h: torch.Tensor, epi: Epilogue,
                     ) -> torch.Tensor:
     """Y [M, D] = act(A @ H + bias + residual) with A in SELL-C-σ.
 
-    ``h`` carries the logical N rows.  Rows the tile-pruned kernel never
-    computes (all-zero rows in pruned slices) still owe their background
+    ``h`` carries the logical N rows.  Rows outside the live block-rows
+    (all-zero rows in pruned slices) still owe their background
     ``act(bias + residual)``, which the final gather re-inserts; with no
     bias or residual that background is zero.
     """
@@ -138,10 +152,9 @@ def spmm_sell_fused(sell: SellCS, h: torch.Tensor, epi: Epilogue,
     if epi.has_residual:
         res_ext = torch.cat([residual, residual.new_zeros((1, d))])
         res_perm = res_ext[sell.perm]  # packed row order; pad rows zero
-    y = spmm_sell_epilogue_kernel(
-        sell.tile_rows, sell.tile_cols, sell_tile_blocks(sell),
-        pad_h(sell, h), bias, res_perm, epi=epi,
-        n_live_block_rows=sell.n_live_block_rows)
+    y = spmm_sell_epilogue_kernel(*sell_row_operands(sell), h.contiguous(),
+                                  bias, res_perm, epi=epi,
+                                  heavy_rows=sell.tile_heavy_rows)
     y_ext = torch.cat([y, y.new_zeros((1, d))])
     out = y_ext[sell.tile_out_gather]
     if epi.has_bias or epi.has_residual:

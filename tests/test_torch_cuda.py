@@ -30,15 +30,18 @@ from repro_torch.kernels.fused.epilogue import Epilogue
 from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
                                             spmm_blockell_epilogue_ref,
                                             spmm_sell_epilogue_kernel,
-                                            spmm_sell_epilogue_ref)
+                                            spmm_sell_epilogue_ref,
+                                            spmm_sell_epilogue_slots_ref)
 from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
 from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
 from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
                                             sddmm_sell_tiles_ref)
 from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
-from repro_torch.kernels.spmm.sell import (sell_tile_blocks,
+from repro_torch.kernels.spmm.sell import (sell_row_operands,
+                                           sell_tile_blocks,
                                            spmm_sell_kernel,
+                                           spmm_sell_slots_ref,
                                            spmm_sell_tiles_ref)
 from repro_torch.models.gnn import (build_graph, graph_candidates, init_gat,
                                     init_gcn)
@@ -98,25 +101,97 @@ def test_blockell_kernels_match_plain(dev, block, d):
 @pytest.mark.parametrize("block", BLOCKS)
 @pytest.mark.parametrize("d", WIDTHS)
 def test_sell_kernels_match_plain(dev, block, d):
-    bm, _ = block
+    """K2/K6 on their slot operands against their plain versions and the
+    tile-granular plain versions of the same matrix."""
+    bm, bn = block
     sell = SellCS.from_dense(_sparse(d, 301, 277, 0.004), block=block,
                              device=dev)
-    n_pad = -(-277 // block[1]) * block[1]
-    ops = (sell.tile_rows, sell.tile_cols, sell_tile_blocks(sell),
-           torch.randn(n_pad, d, device=dev))
+    h = torch.randn(277, d, device=dev)
+    ops = (*sell_row_operands(sell), h)
+    tiles = (sell.tile_rows, sell.tile_cols, sell_tile_blocks(sell),
+             torch.nn.functional.pad(h, (0, 0, 0, -(-277 // bn) * bn - 277)))
     kw = dict(n_live_block_rows=sell.n_live_block_rows)
+    heavy = dict(heavy_rows=sell.tile_heavy_rows)
     before = spmm_sell_kernel.launches
-    torch.testing.assert_close(spmm_sell_kernel(*ops, **kw),
-                               spmm_sell_tiles_ref(*ops, **kw), **TOL)
+    got = spmm_sell_kernel(*ops, **heavy)
     assert spmm_sell_kernel.launches == before + 1
+    torch.testing.assert_close(got, spmm_sell_slots_ref(*ops), **TOL)
+    torch.testing.assert_close(got, spmm_sell_tiles_ref(*tiles, **kw), **TOL)
     for act in ("identity", "relu", "leaky_relu"):
         epi = Epilogue(act=act, negative_slope=0.2, has_bias=True,
                        has_residual=True)
         tail = (torch.randn(d, device=dev),
                 torch.randn(sell.n_live_block_rows * bm, d, device=dev))
+        before = spmm_sell_epilogue_kernel.launches
+        got = spmm_sell_epilogue_kernel(*ops, *tail, epi=epi, **heavy)
+        assert spmm_sell_epilogue_kernel.launches == before + 1
         torch.testing.assert_close(
-            spmm_sell_epilogue_kernel(*ops, *tail, epi=epi, **kw),
-            spmm_sell_epilogue_ref(*ops, *tail, epi=epi, **kw), **TOL)
+            got, spmm_sell_epilogue_slots_ref(*ops, *tail, epi=epi), **TOL)
+        torch.testing.assert_close(
+            got, spmm_sell_epilogue_ref(*tiles, *tail, epi=epi, **kw), **TOL)
+
+
+def _assert_sums_close(got, want, ops):
+    """Row sums of n f32 terms taken in two orders (the kernel's, in
+    chunks for a heavy row, and the plain version's atomics) differ by
+    about √n · eps · Σ|term|, far above TOL's atol for an element of a
+    long row that cancels; held to twice that on top of TOL."""
+    row_slot, row_nnz, cols, vals, h = ops
+    mag = spmm_sell_slots_ref(row_slot, row_nnz, cols, vals.abs(), h.abs())
+    n = row_nnz.float().clamp_min(1).sqrt()[:, None]
+    eps = torch.finfo(torch.float32).eps
+    tol = TOL["atol"] + TOL["rtol"] * want.abs() + 2 * eps * n * mag
+    worst = float(((got - want).abs() / tol).max())
+    assert worst <= 1, f"an element is {worst:.2f}x its tolerance"
+
+
+@pytest.mark.parametrize("d", [1, 16, 48, 100, 128, 256])
+def test_sell_kernels_heavy_and_empty_rows(dev, d):
+    """A ragged matrix with a row of 1,200 nonzeros and others above the
+    heavy threshold (a CTA each), rows of a few, and empty rows inside
+    live block-rows: K2/K6 against their plain versions, and empty rows
+    (padding rows too) exactly act(bias + res) (K6) or 0 (K2)."""
+    a = _sparse(d + 1, 1000, 1500, 0.004)
+    a[17, :1200] = np.random.default_rng(d).standard_normal(1200)
+    a[40:45, 200:400] = 1.0 + a[40:45, 200:400]  # 5 rows of >= 200
+    a[np.arange(1000), np.arange(1000)] = 1.0  # no row empty by chance
+    a[[3, 500, 999]] = 0.0  # 3 empty rows: they share a slice with others
+    sell = SellCS.from_dense(a, block=(64, 64), device=dev)
+    nnz = sell.tile_row_nnz
+    assert int(nnz.max()) >= 1200 and sell.tile_heavy_rows.shape[0] == 6
+    empty = nnz == 0
+    assert bool((empty & (sell.perm < 1000)).any())
+    ops = (*sell_row_operands(sell), torch.randn(1500, d, device=dev))
+    heavy = dict(heavy_rows=sell.tile_heavy_rows)
+    before = spmm_sell_kernel.launches
+    got = spmm_sell_kernel(*ops, **heavy)
+    assert spmm_sell_kernel.launches == before + 1
+    _assert_sums_close(got, spmm_sell_slots_ref(*ops), ops)
+    assert bool((got[empty] == 0).all())
+    for act in ("identity", "relu", "leaky_relu"):
+        epi = Epilogue(act=act, negative_slope=0.2, has_bias=True,
+                       has_residual=True)
+        tail = (torch.randn(d, device=dev),
+                torch.randn(sell.n_live_block_rows * 64, d, device=dev))
+        before = spmm_sell_epilogue_kernel.launches
+        got = spmm_sell_epilogue_kernel(*ops, *tail, epi=epi, **heavy)
+        assert spmm_sell_epilogue_kernel.launches == before + 1
+        want = spmm_sell_epilogue_slots_ref(*ops, *tail, epi=epi)
+        _assert_sums_close(got, want, ops)
+        torch.testing.assert_close(got[empty], want[empty], rtol=0, atol=0)
+
+
+def test_sell_kernel_takes_unaligned_h(dev):
+    """H at an offset that is not 16-byte aligned takes the scalar path."""
+    sell = SellCS.from_dense(_sparse(5, 301, 277, 0.004), block=(64, 64),
+                             device=dev)
+    flat = torch.randn(277 * 16 + 1, device=dev)
+    h = flat[1:].view(277, 16)
+    assert h.data_ptr() % 16
+    ops = (*sell_row_operands(sell), h)
+    torch.testing.assert_close(
+        spmm_sell_kernel(*ops, heavy_rows=sell.tile_heavy_rows),
+        spmm_sell_slots_ref(*ops), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["ell", "sell"])

@@ -14,9 +14,11 @@ from repro.core.formats import BlockELL as JBlockELL
 from repro.core.formats import SellCS as JSellCS
 from repro.data.pipeline import random_graph as j_random_graph
 from repro.dispatch.stats import MatrixStats as JMatrixStats
-from repro_torch.core.formats import BlockELL, SellCS, sell_slot_volume
+from repro_torch.core.formats import (SELL_HEAVY_ROW_NNZ, BlockELL, SellCS,
+                                      sell_slot_volume)
 from repro_torch.data.pipeline import random_graph
 from repro_torch.dispatch.stats import MatrixStats
+from repro_torch.sparse.matrix import with_values
 
 SELL_INDEX_FIELDS = ("slot_cols", "slot_rows", "out_gather", "perm",
                      "tile_rows", "tile_cols", "tile_slot_map",
@@ -35,8 +37,15 @@ def _empty_rows(rng):
     return dense
 
 
+def _heavy_row(rng):
+    dense = _uniform(rng, 150, 300, 0.03)
+    dense[5, :250] = rng.normal(size=250) + 5.0  # above SELL_HEAVY_ROW_NNZ
+    return dense
+
+
 CASES = {
     "uniform": lambda rng: _uniform(rng, 128, 128, 0.1),
+    "heavy_row": _heavy_row,
     "ragged": lambda rng: _uniform(rng, 100, 70, 0.05),
     "empty_rows": _empty_rows,
     "random_graph": lambda rng: random_graph(256, 2.0, seed=3),
@@ -79,6 +88,55 @@ def test_sellcs_matches_reference(rng, case, block, c):
     assert (ours.shape, ours.block, ours.c, ours.sigma) == \
         (ref.shape, ref.block, ref.c, ref.sigma)
     np.testing.assert_array_equal(ours.to_dense(), ref.to_dense())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("block,c", [((16, 16), 8), ((8, 16), 4),
+                                     ((64, 64), 32)])
+def test_sell_row_view_matches_tile_view(rng, case, block, c):
+    """Each compact output row's slot range holds exactly the live cells
+    of ``tile_slot_map`` in that row, in ascending column; padding rows
+    and rows without nonzeros have none."""
+    dense = CASES[case](rng)
+    sell = SellCS.from_dense(dense, c=c, block=block, device="cpu")
+    bm, bn = block
+    n_rows = sell.n_live_block_rows * bm
+    row_slot, row_nnz = sell.tile_row_slot.numpy(), sell.tile_row_nnz.numpy()
+    for name, arr in (("tile_row_slot", sell.tile_row_slot),
+                      ("tile_row_nnz", sell.tile_row_nnz)):
+        assert arr.dtype == torch.int32 and arr.shape == (n_rows,), name
+    cells = [[] for _ in range(n_rows)]  # (column, slot) per compact row
+    tmap = sell.tile_slot_map.numpy()
+    for t, (tr, tc) in enumerate(zip(sell.tile_rows.numpy(),
+                                     sell.tile_cols.numpy())):
+        for j, k in zip(*np.nonzero(tmap[t] < sell.n_slots)):
+            cells[tr * bm + j].append((tc * bn + k, tmap[t, j, k]))
+    perm = sell.perm.numpy()
+    slot_cols = sell.slot_cols.numpy()
+    for r in range(n_rows):
+        want = sorted(cells[r])
+        slots = row_slot[r] + np.arange(row_nnz[r])
+        assert [s for _, s in want] == slots.tolist(), r
+        assert [col for col, _ in want] == slot_cols[slots].tolist(), r
+        if perm[r] == dense.shape[0]:  # padding row
+            assert row_nnz[r] == 0, r
+        else:
+            assert row_nnz[r] == np.count_nonzero(dense[perm[r]]), r
+    assert int(row_nnz.sum()) == np.count_nonzero(dense)
+    heavy = sell.tile_heavy_rows
+    assert heavy.dtype == torch.int32
+    assert heavy.tolist() == \
+        np.nonzero(row_nnz > SELL_HEAVY_ROW_NNZ)[0].tolist()
+    assert (heavy.shape[0] > 0) == (case == "heavy_row")
+
+
+def test_sell_row_view_survives_new_values(rng):
+    """``with_values`` keeps the topology, the row view included."""
+    sell = SellCS.from_dense(_empty_rows(rng), block=(16, 16), device="cpu")
+    moved = with_values("sell", sell, sell.slot_vals * 2)
+    assert moved.tile_row_slot is sell.tile_row_slot
+    assert moved.tile_row_nnz is sell.tile_row_nnz
+    assert moved.tile_heavy_rows is sell.tile_heavy_rows
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
