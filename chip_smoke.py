@@ -6,12 +6,16 @@
 Phases, each of which must pass or the script exits non-zero:
 
   1. Device and build: the card's name and power limit, torch and CUDA
-     versions, and the build of every CUDA kernel from ``csrc/``.
+     versions, and the build of every CUDA kernel from ``csrc/``, with
+     ptxas's usage; K9's by instance, where a bf16 one must not spill.
   2. Kernels against their plain PyTorch versions on the card, at ragged
      small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
      with bias and residual (K2/K6 on their slot operands, held besides
-     to the tile-granular plain versions of the same matrix); K3/K4 at K = 2 and 48 (K3 with a weighted
-     mask); K7/K8 at dk = 2 and 48, D = 16 and 48, with edge-less rows
+     to the tile-granular plain versions of the same matrix); K3/K4 at
+     K = 2 and 48 (K3 with a weighted mask; K4 on its slot operands, held
+     besides, exactly, to the tile kernel gathered to slots, with padding
+     and edge-less rows' slots exactly 0); K7/K8 at dk = 2 and 48,
+     D = 16 and 48, with edge-less rows
      and all three edge activations; K9 in f32 and bf16 at S = 256, GQA
      8:2, D = 64 and 256, blocks (64, 64), (64, 32) and (128, 64),
      windows 0 and 64, causal and not, and a custom ELL pattern with
@@ -29,7 +33,8 @@ Phases, each of which must pass or the script exits non-zero:
      SpMM kernels, ``torch.sparse.sampled_addmm`` for the SDDMM ones;
      printed here, never called by the port) and beside its bound from
      bytes and the FP32 operations its nonzeros need (K2/K6: the two row
-     arrays, each nonzero's column and value, H and Y; K2/K6 also with
+     arrays, each nonzero's column and value, H and Y; K4: the row arrays,
+     each nonzero's column, B, C and the slot output; K2/K6 also with
      every row cut to the p99 count, to show what the heaviest rows
      cost).  Then, with the kernel launch counts set to 0 just before and
      read just after:
@@ -38,7 +43,11 @@ Phases, each of which must pass or the script exits non-zero:
             ``fuse=False``; one more request profiled, which must call
             neither ``sell_tile_blocks`` nor ``sell_row_ptr``;
        SDDMM: one ``repro_torch.sparse.ops.sddmm`` call at K = 2, its
-            plan and values held to a dense f32 oracle of A ⊙ (B C);
+            plan and values held to a dense f32 oracle of A ⊙ (B C), its
+            peak memory beyond the inputs printed (on (b) at most
+            ``SDDMM_SELL_EXTRA_BYTES``: no tile mask or tile output; K4
+            also equals the tile kernel there, and ``sample_sell_blocked``
+            samples the same without the packing's tile view);
        GAT: 8 requests through ``GNNServingEngine(model="gat")``, logits
             held to a dense f32 masked-softmax oracle, and one request
             with ``fuse=False`` (no kernel: it samples on the csr
@@ -60,7 +69,8 @@ Phases, each of which must pass or the script exits non-zero:
      Each timed beside its bound (the live query-key pairs at the
      dtype's peak), the plain version and
      ``scaled_dot_product_attention`` (the dense ELL mask at (i),
-     ``is_causal`` at (ii); printed here, never called by the port).
+     ``is_causal`` at (ii); printed here, never called by the port); in
+     bf16 with its TFLOP/s, its share of the bound and its ratio to SDPA.
   5. A JSON line of the kernels, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
@@ -69,6 +79,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -91,6 +102,12 @@ PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 ORACLE_RTOL = 1e-4
 ORACLE_ATOL = 1e-7
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)  # kernel vs its plain version
+# K4 vs the tile route it replaced: both sum each dot over K in ascending
+# order with fmaf from 0, so they agree bit for bit
+TILE_PATH_TOL = dict(rtol=0.0, atol=0.0)
+# the (b) SDDMM call may allocate this much beyond its inputs: its output
+# and K4's slot vector, a few MB (a tile mask alone would be ≈ 1 GB)
+SDDMM_SELL_EXTRA_BYTES = 64 * 2**20
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # K9 in bf16 vs its plain version
 # phase 4 outputs.  Every row, in both dtypes, against the plain version
 # and the f32 oracle: ||got_r - want_r|| <= ATTN_ROW_RTOL * ||want_r|| +
@@ -167,6 +184,7 @@ class Port:
         from repro_torch.kernels.bsattn import kernel as bsattn_kernel
         from repro_torch.kernels.bsattn import ops as bsattn_ops
         from repro_torch.kernels.bsattn import ref as bsattn_ref
+        from repro_torch.kernels.bsattn import tiles as bsattn_tiles
         from repro_torch.kernels.fused import attention
         from repro_torch.kernels.fused import spmm as fused
         from repro_torch.kernels.fused.epilogue import Epilogue
@@ -190,6 +208,9 @@ class Port:
         self.fused, self.ref, self.sell = fused, ref, sell
         self.attention = attention
         self.sddmm_ref, self.sddmm_sell = sddmm_ref, sddmm_sell
+        self.sddmm_kernel = sddmm_kernel
+        self.ptxas_usage = bsattn_tiles.ptxas_usage
+        self.spill_bytes = bsattn_tiles.spill_bytes
         self.Epilogue = Epilogue
         self.gnn, self.engine = gnn, engine
         self.ops, self.paths, self.dispatcher = ops, paths, dispatcher
@@ -341,15 +362,22 @@ def ragged_checks_sddmm_attention(torch, np, port):
         errs = {"K3": check_close(torch, f"K3 ragged k={k}",
                                   port.wrappers["K3"](*ops),
                                   port.sddmm_ref.sddmm_blockcoo_ref(*ops))}
-        ops = (sell.tile_rows, sell.tile_cols, pattern,
-               torch.randn(live * bm, k, device=dev),
-               torch.randn(k, n_pad, device=dev))
-        errs["K4"] = check_close(
-            torch, f"K4 ragged k={k}", port.wrappers["K4"](*ops),
-            port.sddmm_sell.sddmm_sell_tiles_ref(*ops))
+        # K4 on its slot operands: held to its plain version and, exactly,
+        # to the tile route it replaced
+        b, c = torch.randn(m, k, device=dev), torch.randn(k, m, device=dev)
+        ops = (*port.sddmm_sell.sddmm_sell_operands(sell), b, c)
+        got = port.wrappers["K4"](*ops)
+        errs["K4"] = check_close(torch, f"K4 ragged k={k}", got,
+                                 port.sddmm_sell.sddmm_sell_slots_ref(*ops))
+        check_close(torch, f"K4 ragged k={k} vs the tile kernel", got,
+                    sell_tile_path(torch, port, sell, b, c), TILE_PATH_TOL)
+        if bool(got[sell.slot_vals == 0].any()):
+            raise AssertionError("K4: a slot off the nonzeros is not 0")
         log(f"ragged m={m} k={k} (COO blocks {coo.nnzb}, SELL tiles "
             f"{sell.n_tiles}): max_abs_err "
-            + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+            + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + " (K4 also equal to the tile kernel gathered to slots; "
+            "padding and edge-less rows' slots exactly 0)")
     att = port.attention
     for dk in (2, 48):
         for d in (16, 48):
@@ -378,6 +406,21 @@ def ragged_checks_sddmm_attention(torch, np, port):
             log(f"ragged m={m} dk={dk} d={d} ({', '.join(ACTS)}; edge-less "
                 "rows exactly 0): max_abs_err "
                 + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+
+
+def sell_tile_path(torch, port, sell, b, c):
+    """The route K4 replaced: the tile kernel (K3's, not counted) over the
+    0/1 tile mask and B gathered to packed row order, gathered back to
+    slot order (dead cells read an appended zero)."""
+    bn = sell.bn
+    tiles = port.sddmm_kernel.launch_tiles(
+        sell.tile_rows, sell.tile_cols,
+        (sell.tile_slot_map < sell.n_slots).float(),
+        torch.cat([b, b.new_zeros((1, b.shape[1]))])[sell.perm].contiguous(),
+        port.paths.pad_cols(c, -(-c.shape[1] // bn) * bn).contiguous(),
+        "the tile kernel over the SELL tiles")
+    return torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])[
+        sell.slot_tile_pos]
 
 
 def ragged_checks_bsattn(torch, np, port):
@@ -738,39 +781,66 @@ def sddmm_phase(torch, port, graph, a_dense, label, want_path):
                 paths.pad_rows(b, coo.shape[0]),
                 paths.pad_cols(c, coo.shape[1]).contiguous())
         what = f"nnzb={coo.nnzb} all-ones blocks {coo.bm}x{coo.bn} K={k}"
+        nnz = int((args[2] != 0).sum())
+        nbytes = nbytes_of(*args) + args[2].numel() * 4  # the output tiles
+        flops = 2 * k * nnz + nnz  # and the mask's multiply
     else:
-        name, plain = "K4", port.sddmm_sell.sddmm_sell_tiles_ref
+        name, plain = "K4", port.sddmm_sell.sddmm_sell_slots_ref
         sell = graph.adj.form("sell")
-        n_pad = -(-n // sell.bn) * sell.bn
-        args = (sell.tile_rows, sell.tile_cols,
-                (sell.tile_slot_map < sell.n_slots).float(),
-                torch.cat([b, b.new_zeros((1, k))])[sell.perm].contiguous(),
-                paths.pad_cols(c, n_pad).contiguous())
-        what = (f"T={sell.n_tiles} live_block_rows={sell.n_live_block_rows} "
-                f"block={sell.bm}x{sell.bn} K={k}")
-    nnz = int((args[2] != 0).sum())
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + args[2].numel() * 4  # the output tiles
+        args = (*port.sddmm_sell.sddmm_sell_operands(sell), b, c)
+        row_slot, row_nnz, perm, slot_cols = args[:4]
+        nnz = int(row_nnz.sum())
+        what = (f"rows={row_slot.shape[0]} slots={sell.n_slots} "
+                f"nonzeros={nnz} K={k}")
+        # what K4 reads and writes: the row arrays, each nonzero's column,
+        # B, C and the slot output (padding slots are never read)
+        nbytes = nbytes_of(row_slot, row_nnz, perm, b, c) \
+            + nnz * slot_cols.element_size() + sell.n_slots * 4
+        flops = 2 * k * nnz
     a_lib = library_csr(torch, graph)
     row = measure(
         torch, name, lambda: port.wrappers[name](*args), lambda: plain(*args),
         lambda: torch.sparse.sampled_addmm(a_lib, b, c, beta=0.0), nbytes,
-        2 * k * nnz + nnz, f"{what}; sampled entries {nnz}")
+        flops, f"{what}; sampled entries {nnz}")
+    if want_path == "sell":
+        got = port.wrappers[name](*args)
+        err = check_close(torch, "K4 vs the tile kernel", got,
+                          sell_tile_path(torch, port, sell, b, c),
+                          TILE_PATH_TOL)
+        # sampling reads no tile view: a packing without one gives the same
+        bare = dataclasses.replace(sell, tile_slot_map=None,
+                                   slot_tile_pos=None)
+        check_close(torch, "sample_sell_blocked without the tile view",
+                    port.sddmm_sell.sample_sell_blocked(bare, b, c), got,
+                    TILE_PATH_TOL)
+        log(f"  K4 equals the tile kernel gathered to slots (max_abs_err "
+            f"{err:.3e}); sample_sell_blocked reads neither tile_slot_map "
+            "nor slot_tile_pos")
+        del got, bare
     del args
 
     cand = port.gnn.graph_candidates(graph.adj)
     torch.cuda.synchronize()
+    prior_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     port.reset_counts()
     s = port.ops.sddmm(graph.adj, b, c, candidates=cand)
     torch.cuda.synchronize()
     counts = port.counts()
+    extra = torch.cuda.max_memory_allocated() - base
     plan = port.dispatcher.last_plan("sddmm")
     log(f"graph ({label}) SDDMM K={k}: plan {plan.path} ({plan.reason}); "
-        f"launches {counts}")
+        f"launches {counts}; peak device memory beyond the inputs "
+        f"{extra / 2**20:.1f} MiB")
     if plan.path != want_path or s.formats != (want_path,) \
             or counts != expected(port, {name: 1}, 1):
         raise AssertionError(f"graph ({label}) SDDMM ran {plan.path!r} with "
                              f"{counts}, expected {want_path!r} and {name} x1")
+    if want_path == "sell" and extra > SDDMM_SELL_EXTRA_BYTES:
+        raise AssertionError(f"graph ({label}) SDDMM allocated "
+                             f"{extra / 2**20:.1f} MiB: a tile mask or tile "
+                             "output was built")
     worst, tol, top = hold_to_oracle(
         torch, label, [s.densify()], lambda _: a_dense * (b @ c), (n, n))
     del s
@@ -785,7 +855,7 @@ def sddmm_phase(torch, port, graph, a_dense, label, want_path):
         f"entry point median {statistics.median(lat):.3f} ms over 5 calls "
         f"(all: {', '.join(f'{t:.3f}' for t in lat)})")
     row["launches"] = counts[name]
-    return {name: row}
+    return {name: row}, prior_peak
 
 
 def gat_oracle(torch, pattern, params, x, chunk=2048):
@@ -915,12 +985,14 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
         for i in range(REQUESTS)]
     rows = gcn_phase(torch, port, graph, a_dense, label, want_path, expect,
                      xs)
-    rows.update(sddmm_phase(torch, port, graph, a_dense, label, want_path))
+    sddmm_rows, peak = sddmm_phase(torch, port, graph, a_dense, label,
+                                   want_path)
+    rows.update(sddmm_rows)
     pattern = a_dense != 0
     del a_dense
     rows.update(gat_phase(torch, port, graph, pattern, label, want_path, xs))
-    log(f"graph ({label}) peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    log(f"graph ({label}) peak device memory {peak / 2**30:.2f} GiB")
     return rows
 
 
@@ -1082,6 +1154,11 @@ def bsattn_phase(torch, np, port):
                 f"{flops / PEAK_FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 "
                 f"FFMA peak; kernel at "
                 f"{flops / row['ms'] / 1e9:.2f} TFLOP/s)")
+            if dtype == torch.bfloat16:
+                log(f"  K9 ({label}) bf16 on the tensor cores: "
+                    f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+                    f"{100 * row['bound_ms'] / row['ms']:.1f} % of its bound, "
+                    f"{row['ms'] / row['library_ms']:.2f}x SDPA's time")
             if label == "i" and dtype == torch.bfloat16:
                 row["launches"] = counts["K9"]
                 k9_row = row
@@ -1128,6 +1205,11 @@ def main() -> int:
                         if "Used" in line or "spill" in line})
         log(f"  {name} (ptxas, distinct over its instances): "
             + " | ".join(usage))
+    if "bsattn" in logs:  # K9 by instance; the bf16 ones must not spill
+        for inst, lines in sorted(port.ptxas_usage(logs["bsattn"]).items()):
+            log(f"  K9 {inst}: " + "; ".join(lines))
+            if inst.startswith("bf16") and port.spill_bytes(lines):
+                raise AssertionError(f"K9 {inst} spills: {lines}")
 
     ragged_checks(torch, np, port)
     ragged_checks_sddmm_attention(torch, np, port)

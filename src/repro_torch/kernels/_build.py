@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,18 +28,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point and argument types of each library (see the .cu files)
+# C entry point and argument types by the name ``entry`` takes: a source's
+# own name, or another entry point of a source named in ``_SOURCE`` (see
+# the .cu files)
 _SIGNATURES = {
     "spmm_blockell": ("spmm_blockell_f32",
                       [_P] * 6 + [_I] * 6 + [_F, _P]),
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles_f32", [_P] * 6 + [_I] * 5 + [_P]),
+    "sddmm_sell_slots": ("sddmm_sell_slots_f32", [_P] * 7 + [_I] * 3 + [_P]),
     "fused_attention": ("fused_attn_f32", [_P] * 7 + [_I] * 8 + [_F, _P]),
     "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
+_SOURCE = {"sddmm_sell_slots": "sddmm"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -95,18 +100,22 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def entry(name: str):
-    """The C entry point of one kernel library, built on first use."""
+    """The C entry point ``name`` (see ``_SIGNATURES``), its library built
+    on first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(lib_path(name)))
+        fn = _FNS.get(name)
+        if fn is None:
+            source = _SOURCE.get(name, name)
+            lib = _LIBS.get(source)
+            if lib is None:
+                build([source])
+                lib = _LIBS[source] = ctypes.CDLL(str(lib_path(source)))
             fn_name, argtypes = _SIGNATURES[name]
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _LIBS[name] = lib
-        return getattr(lib, _SIGNATURES[name][0])
+            _FNS[name] = fn
+        return fn
 
 
 def check(err: int, what: str) -> None:

@@ -31,7 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.spmm.kernel import check_operand, require_cuda
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256  # the kernel keeps a 64 x D f32 q tile on chip
+MAX_HEAD_DIM = 256  # both designs keep a 64 x D q tile on chip
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -2,10 +2,9 @@
 
 K3 replaces the Pallas kernel ``sddmm_blockcoo_kernel`` of
 ``repro.kernels.sddmm.kernel``.  The CUDA source is ``csrc/sddmm.cu``
-(shared with K4, which runs it over the SELL live tiles); its note says
-what bounds it on an H100 and how its design answers that.  The CUDA
-kernel loops over K itself and masks the ragged last chunk, so any
-K >= 1 works.
+(beside K4's slot kernel); its note says what bounds it on an H100 and
+how its design answers that.  The CUDA kernel loops over K itself and
+masks the ragged last chunk, so any K >= 1 works.
 
 The wrapper runs the plain version (``ref.sddmm_blockcoo_ref``) for CPU
 tensors and the kernel for CUDA tensors; there is no fallback between the
@@ -22,8 +21,8 @@ from repro_torch.kernels.spmm.kernel import (check_geometry, check_operand,
 
 
 def launch_tiles(rows, cols, mask_blocks, b, c, what: str) -> torch.Tensor:
-    """Check the operands and launch ``csrc/sddmm.cu`` on the current
-    stream; returns Y [T, bm, bn]."""
+    """Check the operands and launch the tile kernel of ``csrc/sddmm.cu``
+    (K3's) on the current stream; returns Y [T, bm, bn]."""
     dev = b.device
     t_count, bm, bn = mask_blocks.shape
     m, k = b.shape

@@ -1,40 +1,100 @@
-"""Tile-pruned SELL-C-σ SDDMM: the wrapper of kernel K4, its plain version
-and the plumbing around it (the port of ``repro.kernels.sddmm.sell``).
+"""SELL-C-σ SDDMM: the wrapper of kernel K4, its plain versions and the
+plumbing around it (the port of ``repro.kernels.sddmm.sell``).
 
 K4 replaces the Pallas kernel ``sddmm_sell_kernel``.  The CUDA source is
-``csrc/sddmm.cu``, shared with K3: both mask one (bm x bn) tile product
-per listed tile, K4 over the live tiles of a SELL packing with B already
-gathered into packed row order.  ``sddmm_sell_kernel.launches`` counts
-kernel launches.
+``csrc/sddmm.cu`` (beside K3's tile kernel).  The Pallas kernel
+multiplied a dense tile per live tile behind a 0/1 tile mask; K4 computes
+one dot per structural nonzero, found through the row view built once at
+packing (``SellCS.tile_row_slot`` / ``tile_row_nnz``, with ``perm`` for
+each compact row's logical row of B and ``slot_cols`` for each
+nonzero's column of C), so no tile mask, tile output or slot gather is
+made per call.  ``sddmm_sell_kernel.launches`` counts kernel launches.
+
+``sddmm_sell_tiles_ref`` stays: it is the tile-granular plain version the
+tests hold to the Pallas kernel, and a second check of the slot version.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.formats import SellCS
-from repro_torch.kernels.sddmm.kernel import launch_tiles
+from repro_torch.kernels import _build
 from repro_torch.kernels.sddmm.ref import masked_tile_products
-from repro_torch.kernels.spmm.kernel import require_cuda
+from repro_torch.kernels.spmm.kernel import check_operand, require_cuda
 
 
 def sddmm_sell_tiles_ref(tile_rows, tile_cols, mask_blocks, b_perm,
                          c) -> torch.Tensor:
-    """Plain version of K4's masked tile output, f32 [T, bm, bn]."""
+    """Tile-granular plain version (the Pallas kernel's function):
+    ``mask[t] ⊙ (B_perm[tile_rows[t]-block] @ C[:, tile_cols[t]-
+    block])``, f32 [T, bm, bn]; ``b_perm`` [n_live*bm, K], ``c``
+    [K, Np]."""
     return masked_tile_products(tile_rows, tile_cols, mask_blocks, b_perm, c)
 
 
-def sddmm_sell_kernel(tile_rows: torch.Tensor, tile_cols: torch.Tensor,
-                      mask_blocks: torch.Tensor, b_perm: torch.Tensor,
-                      c: torch.Tensor) -> torch.Tensor:
-    """K4: mask[t] ⊙ (B_perm[tile_rows[t]-block] @ C[:, tile_cols[t]-
-    block]) over the live tiles; ``b_perm`` [n_live*bm, K], ``c``
-    [K, Np]."""
-    if b_perm.device.type == "cpu":
-        return sddmm_sell_tiles_ref(tile_rows, tile_cols, mask_blocks,
-                                    b_perm, c)
-    require_cuda(b_perm, "sddmm_sell_kernel")
-    y = launch_tiles(tile_rows, tile_cols, mask_blocks, b_perm, c,
-                     "K4 sddmm_sell")
+def sddmm_sell_operands(sell: SellCS) -> Tuple[torch.Tensor, ...]:
+    """K4's topology operands: (``tile_row_slot``, ``tile_row_nnz``,
+    ``perm``, ``slot_cols``)."""
+    return sell.tile_row_slot, sell.tile_row_nnz, sell.perm, sell.slot_cols
+
+
+def sddmm_sell_slots_ref(row_slot, row_nnz, perm, slot_cols, b,
+                         c) -> torch.Tensor:
+    """Plain version of K4: y[row_slot[r] + j] = B[perm[r]] ·
+    C[:, slot_cols[row_slot[r] + j]] for j < row_nnz[r]; every other slot
+    0.  f32 [n_slots]."""
+    counts = row_nnz.long()
+    rows = torch.repeat_interleave(
+        torch.arange(row_slot.shape[0], device=b.device), counts)
+    first = torch.cumsum(counts, 0) - counts  # row -> its first nonzero
+    slots = torch.arange(rows.shape[0], device=b.device) \
+        + (row_slot.long() - first)[rows]
+    dots = (b[perm[rows].long()].float()
+            * c.T[slot_cols[slots].long()].float()).sum(dim=-1)
+    y = torch.zeros(slot_cols.shape, dtype=torch.float32, device=b.device)
+    y[slots] = dots
+    return y
+
+
+def launch_sell_slots(row_slot, row_nnz, perm, slot_cols, b,
+                      c) -> torch.Tensor:
+    """Check the operands and launch K4 (``csrc/sddmm.cu``) on the current
+    stream; returns y [n_slots].  Every ``perm`` entry of a row with
+    nonzeros must be below ``b``'s row count and every column it reads
+    below ``c``'s (``SellCS`` guarantees both; checking them here would
+    cost a host sync)."""
+    dev = b.device
+    n_rows, n_slots = row_slot.shape[0], slot_cols.shape[0]
+    m, k = b.shape
+    n = c.shape[1]
+    check_operand(row_slot, "row_slot", torch.int32, (n_rows,), dev)
+    check_operand(row_nnz, "row_nnz", torch.int32, (n_rows,), dev)
+    check_operand(perm, "perm", torch.int32, (n_rows,), dev)
+    check_operand(slot_cols, "slot_cols", torch.int32, (n_slots,), dev)
+    check_operand(b, "b", torch.float32, (m, k), dev)
+    check_operand(c, "c", torch.float32, (k, n), dev)
+    y = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.entry("sddmm_sell_slots")(
+            row_slot.data_ptr(), row_nnz.data_ptr(), perm.data_ptr(),
+            slot_cols.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+            n_rows, k, n, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K4 sddmm_sell")
+    return y
+
+
+def sddmm_sell_kernel(row_slot: torch.Tensor, row_nnz: torch.Tensor,
+                      perm: torch.Tensor, slot_cols: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """K4: the raw dots B[perm[r]] · C[:, col] at every structural nonzero
+    of every compact row r, in slot order, 0 elsewhere; ``b`` [M, K]
+    logical rows, ``c`` [K, N] logical columns; f32 [n_slots]."""
+    if b.device.type == "cpu":
+        return sddmm_sell_slots_ref(row_slot, row_nnz, perm, slot_cols, b, c)
+    require_cuda(b, "sddmm_sell_kernel")
+    y = launch_sell_slots(row_slot, row_nnz, perm, slot_cols, b, c)
     sddmm_sell_kernel.launches += 1
     return y
 
@@ -47,20 +107,10 @@ def sample_sell_blocked(sell: SellCS, b: torch.Tensor,
     """Raw dots (B @ C) at the live structural slots, in slot order.
 
     ``b``: [M, K] logical rows; ``c``: [K, N] logical columns.  Output:
-    f32 [n_slots]; padding slots read the appended zero cell.
+    f32 [n_slots]; padding slots (and those of a matrix with no live
+    tile) are 0.
     """
-    _, n = sell.shape
-    k = b.shape[1]
-    n_slots = sell.n_slots
     if sell.n_tiles == 0:
-        return b.new_zeros((n_slots,), dtype=torch.float32)
-    n_pad = -(-n // sell.bn) * sell.bn
-    b_ext = torch.cat([b, b.new_zeros((1, k))])
-    b_perm = b_ext[sell.perm]  # [n_live*bm, K]; padding rows are zero
-    if c.shape[1] != n_pad:
-        c = torch.nn.functional.pad(c, (0, n_pad - c.shape[1]))
-    mask = (sell.tile_slot_map < n_slots).to(torch.float32)
-    tiles = sddmm_sell_kernel(sell.tile_rows, sell.tile_cols, mask,
-                              b_perm.contiguous(), c.contiguous())
-    flat = torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])
-    return flat[sell.slot_tile_pos]
+        return b.new_zeros((sell.n_slots,), dtype=torch.float32)
+    return sddmm_sell_kernel(*sddmm_sell_operands(sell), b.contiguous(),
+                             c.contiguous())

@@ -3,9 +3,11 @@ versions (tolerance rtol 1e-4, atol 1e-5: f32 sums in another order, and
 for K7/K8 the online softmax against the two-sweep; K9 in bf16 at rtol =
 atol = 2e-2, the output and p rounded to bf16), across block shapes,
 ragged edges, K / dk and D-tile widths, all three edge activations, and
-for K9 the causal / window flags, GQA and custom ELL patterns; and GCN and
-GAT serving, the SDDMM front-end and block-sparse attention on the card
-against the same calls on the CPU.
+for K9 the causal / window flags, GQA and custom ELL patterns (and for its
+bf16 tensor-core instances padded head dims, key chunks cut by block_kv,
+large logits and empty block-rows); K4 besides, exactly, against the tile
+kernel it replaced; and GCN and GAT serving, the SDDMM front-end and
+block-sparse attention on the card against the same calls on the CPU.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -32,10 +34,12 @@ from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
                                             spmm_sell_epilogue_kernel,
                                             spmm_sell_epilogue_ref,
                                             spmm_sell_epilogue_slots_ref)
-from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
+from repro_torch.kernels.sddmm.kernel import (launch_tiles,
+                                              sddmm_blockcoo_kernel)
 from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
 from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
-                                            sddmm_sell_tiles_ref)
+                                            sddmm_sell_operands,
+                                            sddmm_sell_slots_ref)
 from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
 from repro_torch.kernels.spmm.sell import (sell_row_operands,
@@ -229,14 +233,47 @@ def test_sddmm_kernels_match_plain(dev, block, k):
     assert sddmm_blockcoo_kernel.launches == before + 1
     sell = SellCS.from_dense(_sparse(k, 301, 277, 0.004), block=block,
                              device=dev)
-    ops = (sell.tile_rows, sell.tile_cols,
-           (sell_tile_blocks(sell) != 0).float(),
-           torch.randn(sell.n_live_block_rows * bm, k, device=dev),
-           torch.randn(k, -(-277 // bn) * bn, device=dev))
+    _check_k4(sell, torch.randn(301, k, device=dev),
+              torch.randn(k, 277, device=dev))
+
+
+def _check_k4(sell, b, c):
+    """K4 on its slot operands against its plain version (TOL) and against
+    the tile kernel's output gathered to slots.  The tile kernel sums each
+    dot over K in ascending order with fmaf from 0, as K4 does, so the two
+    agree exactly (rtol = atol = 0)."""
+    ops = (*sddmm_sell_operands(sell), b, c)
     before = sddmm_sell_kernel.launches
-    torch.testing.assert_close(sddmm_sell_kernel(*ops),
-                               sddmm_sell_tiles_ref(*ops), **TOL)
+    got = sddmm_sell_kernel(*ops)
     assert sddmm_sell_kernel.launches == before + 1
+    torch.testing.assert_close(got, sddmm_sell_slots_ref(*ops), **TOL)
+    bn = sell.bn
+    tiles = launch_tiles(
+        sell.tile_rows, sell.tile_cols,
+        (sell.tile_slot_map < sell.n_slots).float(),
+        torch.cat([b, b.new_zeros((1, b.shape[1]))])[sell.perm].contiguous(),
+        torch.nn.functional.pad(c, (0, -(-c.shape[1] // bn) * bn
+                                    - c.shape[1])).contiguous(),
+        "K3's tile kernel over the SELL tiles")
+    want = torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])[
+        sell.slot_tile_pos]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("k", [2, 48])
+def test_k4_heavy_and_empty_rows(dev, k):
+    """A row of 1,200 nonzeros, rows of a few and edge-less rows: K4
+    against its plain version and the tile kernel, every slot that is not
+    a nonzero exactly 0."""
+    a = _sparse(k + 3, 1000, 1500, 0.004)
+    a[17, :1200] = 1.0
+    a[[3, 500, 999]] = 0.0
+    sell = SellCS.from_dense(a, block=(64, 64), sigma=8, device=dev)
+    assert int(sell.tile_row_nnz.max()) >= 1200
+    got = _check_k4(sell, torch.randn(1000, k, device=dev),
+                    torch.randn(k, 1500, device=dev))
+    assert bool((got[sell.slot_vals == 0] == 0).all())
 
 
 @pytest.mark.parametrize("block", BLOCKS)
@@ -355,6 +392,34 @@ def test_bsattn_custom_pattern_on_card(dev, dtype):
         got.float(), bsattn_ref(ell, val, q, k, v, scale=1 / 16,
                                 **kw).float(), **BSATTN_TOL[dtype])
     assert bool((got[:, 64:192] == 0).all())
+
+
+@pytest.mark.parametrize("d", [16, 100, 256])
+@pytest.mark.parametrize("blocks", [(64, 48), (96, 80), (64, 64)])
+def test_bsattn_bf16_tensor_core_edges(dev, d, blocks):
+    """K9's bf16 tensor-core instances: head dims padded with zeros to the
+    tile (16, and 100, which is also loaded without cp.async) and the full
+    256; ``block_kv`` not a multiple of the 32-key chunk; q and k scaled
+    x8 (logits x64), so the running max jumps between chunks and the
+    online rescale runs; and a block-row with no valid slot, exactly 0.
+    V keeps its scale: scaling it would only scale the output, and with it
+    the one-ulp differences of p's bf16 rounding, past BSATTN_TOL's
+    absolute part."""
+    bq, bk = blocks
+    s = 960  # a multiple of every block size above
+    q, k, v = _bsattn_inputs(dev, d + bq, torch.bfloat16, s=s, d=d)
+    q, k = 8 * q, 8 * k
+    for window, causal in ((0, True), (200, True), (0, False)):
+        ell, val = (torch.from_numpy(a).to(dev)
+                    for a in banded_ell(s, bq, bk, window))
+        val[2] = 0  # block-row 2: no valid slot
+        kw = dict(block_q=bq, block_kv=bk, causal=causal, window=window)
+        got = bsattn_kernel(ell, val, q, k, v, **kw)
+        torch.testing.assert_close(
+            got.float(), bsattn_ref(ell, val, q, k, v, scale=d ** -0.5,
+                                    **kw).float(),
+            **BSATTN_TOL[torch.bfloat16])
+        assert bool((got[:, 2 * bq:3 * bq] == 0).all())
 
 
 def test_bsattn_gqa_head_mapping_on_card(dev):

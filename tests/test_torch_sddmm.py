@@ -4,7 +4,9 @@ front-end.
 On the CPU each wrapper runs its kernel's plain version; it is held to
 the JAX package's Pallas kernel run in interpret mode on the same numpy
 inputs, at K = 2 (GAT's width) and 48, with a weighted mask for K3
-(rtol 1e-5, atol 1e-5: f32 sums in another order).  The front-end
+(rtol 1e-5, atol 1e-5: f32 sums in another order); K4's slot plain
+version is held besides to the tile route it replaced (the tile-granular
+plain version gathered to slots).  The front-end
 ``repro_torch.sparse.ops.sddmm`` is held to ``repro.sparse.sddmm`` on
 the same matrices: the same plan and values within rtol 3e-4, atol 3e-4
 (the reference's own SDDMM tolerance).
@@ -31,7 +33,9 @@ from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
 from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
 from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
 from repro_torch.kernels.sddmm.sell import (sample_sell_blocked,
-                                            sddmm_sell_kernel)
+                                            sddmm_sell_kernel,
+                                            sddmm_sell_operands,
+                                            sddmm_sell_tiles_ref)
 from repro_torch.models.gnn import build_graph, graph_candidates
 from repro_torch.sparse import ops
 from repro_torch.sparse.matrix import SparseMatrix
@@ -79,6 +83,9 @@ def test_k3_plain_matches_pallas_interpret(k):
 
 @pytest.mark.parametrize("k", [2, 48])
 def test_k4_plain_matches_pallas_interpret(k):
+    """The tile-granular plain version against the Pallas kernel, and the
+    SELL sampling entry point (K4's slot plain version on the CPU)
+    against the reference's."""
     a = _weighted(k, density=0.05)
     rng = np.random.default_rng(k + 2)
     jsell = JSellCS.from_dense(a, block=BLOCK)
@@ -91,18 +98,81 @@ def test_k4_plain_matches_pallas_interpret(k):
     want = j_k4(jsell.tile_rows, jsell.tile_cols,
                 jnp.asarray(mask.numpy()), jnp.asarray(b_perm),
                 jnp.asarray(c), bk=k, interpret=True)
-    before = sddmm_sell_kernel.launches
-    got = sddmm_sell_kernel(sell.tile_rows, sell.tile_cols, mask,
-                            _t(b_perm), _t(c))
-    assert sddmm_sell_kernel.launches == before
+    got = sddmm_sell_tiles_ref(sell.tile_rows, sell.tile_cols, mask,
+                               _t(b_perm), _t(c))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
-    # the wrapper's gathers: slot-ordered dots, padding slots read zero
+    # slot-ordered dots, padding slots zero
     b = rng.normal(size=(M, k)).astype(np.float32)
     c = rng.normal(size=(k, N)).astype(np.float32)
+    before = sddmm_sell_kernel.launches
+    got = sample_sell_blocked(sell, _t(b), _t(c))
+    assert sddmm_sell_kernel.launches == before  # plain version on CPU
     np.testing.assert_allclose(
-        sample_sell_blocked(sell, _t(b), _t(c)).numpy(),
-        np.asarray(j_sample_sell(jsell, jnp.asarray(b), jnp.asarray(c),
-                                 interpret=True)), **KERNEL_TOL)
+        got.numpy(), np.asarray(j_sample_sell(jsell, jnp.asarray(b),
+                                              jnp.asarray(c),
+                                              interpret=True)),
+        **KERNEL_TOL)
+
+
+def _tile_path_slots(sell, b, c):
+    """The tile route K4 replaced: the tile-granular plain version over
+    the 0/1 tile mask, gathered back to slot order (dead cells read an
+    appended zero)."""
+    bn = sell.bn
+    b_perm = torch.cat([b, b.new_zeros((1, b.shape[1]))])[sell.perm]
+    c_pad = torch.nn.functional.pad(c, (0, -(-c.shape[1] // bn) * bn
+                                        - c.shape[1]))
+    tiles = sddmm_sell_tiles_ref(sell.tile_rows, sell.tile_cols,
+                                 (sell.tile_slot_map < sell.n_slots).float(),
+                                 b_perm, c_pad)
+    return torch.cat([tiles.reshape(-1), tiles.new_zeros(1)])[
+        sell.slot_tile_pos]
+
+
+@pytest.mark.parametrize("k", [2, 48])
+def test_k4_slots_plain_matches_tile_path(k):
+    """K4's slot plain version, on its slot operands, against the JAX
+    ``sample_sell_blocked`` (Pallas in interpret mode) and against the
+    tile route it replaced, on a ragged matrix with skewed rows."""
+    a = _weighted(k + 20, density=0.08, m=97, n=83)
+    a[11, :70] = 1.0  # a long row beside short ones
+    rng = np.random.default_rng(k + 21)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    b = rng.normal(size=(97, k)).astype(np.float32)
+    c = rng.normal(size=(k, 83)).astype(np.float32)
+    got = sddmm_sell_kernel(*sddmm_sell_operands(sell), _t(b), _t(c))
+    assert got.shape == (sell.n_slots,) and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_sample_sell(
+            JSellCS.from_dense(a, block=BLOCK), jnp.asarray(b),
+            jnp.asarray(c), interpret=True)), **KERNEL_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               _tile_path_slots(sell, _t(b), _t(c)).numpy(),
+                               **KERNEL_TOL)
+    # each structural slot is its own dot of B's row and C's column
+    live = sell.slot_vals != 0
+    rows, cols = sell.slot_rows[live].long(), sell.slot_cols[live].long()
+    np.testing.assert_allclose(got[live].numpy(),
+                               (b[rows] * c.T[cols]).sum(-1), **KERNEL_TOL)
+
+
+def test_k4_slots_are_zero_off_the_nonzeros():
+    """Edge-less rows and the padding slots of short rows come out
+    exactly 0; the output has every slot."""
+    a = _weighted(31, density=0.1)
+    a[[0, 7, 30]] = 0.0  # edge-less rows
+    a[5, :35] = 1.0      # widens its slice: the other rows pad
+    # sort windows of one slice keep each empty row beside live ones
+    sell = SellCS.from_dense(a, block=BLOCK, sigma=8, device="cpu")
+    rng = np.random.default_rng(31)
+    b = _t(rng.normal(size=(M, 2)).astype(np.float32) + 3.0)
+    c = _t(rng.normal(size=(2, N)).astype(np.float32) + 3.0)
+    got = sample_sell_blocked(sell, b, c)
+    live = sell.slot_vals != 0
+    assert got.shape == (sell.n_slots,) and int((~live).sum()) > 40
+    assert bool((got[~live] == 0).all()) and bool((got[live] != 0).all())
+    empty = torch.isin(sell.slot_rows, torch.tensor([0, 7, 30]))
+    assert bool(empty.any()) and bool((got[empty] == 0).all())
 
 
 def test_sample_sell_without_live_tiles_is_zero():
