@@ -7,11 +7,15 @@ Phases, each of which must pass or the script exits non-zero:
 
   1. Device and build: the card's name and power limit, torch and CUDA
      versions, and the build of every CUDA kernel from ``csrc/``, with
-     ptxas's usage; K9's by instance, where a bf16 one must not spill.
+     ptxas's usage; every instance that spills is printed, and no K1/K5
+     instance (``spmm_blockell``) nor bf16 K9 instance may spill.
   2. Kernels against their plain PyTorch versions on the card, at ragged
      small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
      with bias and residual (K2/K6 on their slot operands, held besides
-     to the tile-granular plain versions of the same matrix); K3/K4 at
+     to the tile-granular plain versions of the same matrix); K1/K5's
+     streaming kernel besides at block fills 0, 1 %, 10 % and 100 %, an
+     all-padding block-row, D = 16, 48, 128 and 130, in f32, bf16 and f16,
+     launched twice for equal bits; K3/K4 at
      K = 2 and 48 (K3 with a weighted mask; K4 on its slot operands, held
      besides, exactly, to the tile kernel gathered to slots, with padding
      and edge-less rows' slots exactly 0); K7/K8 at dk = 2 and 48,
@@ -32,7 +36,9 @@ Phases, each of which must pass or the script exits non-zero:
      the same function where there is one (``torch.sparse.mm`` for the
      SpMM kernels, ``torch.sparse.sampled_addmm`` for the SDDMM ones;
      printed here, never called by the port) and beside its bound from
-     bytes and the FP32 operations its nonzeros need (K2/K6: the two row
+     bytes and the FP32 operations its nonzeros need (K1/K5: the blocks
+     once, with the bytes its design moves printed beside, counted from
+     the shapes, not read from a counter; K2/K6: the two row
      arrays, each nonzero's column and value, H and Y; K4: the row arrays,
      each nonzero's column, B, C and the slot output; K2/K6 also with
      every row cut to the p99 count, to show what the heaviest rows
@@ -68,9 +74,10 @@ Phases, each of which must pass or the script exits non-zero:
      to the plain version (rtol 1e-2, atol 2e-3).
      Each timed beside its bound (the live query-key pairs at the
      dtype's peak), the plain version and
-     ``scaled_dot_product_attention`` (the dense ELL mask at (i),
-     ``is_causal`` at (ii); printed here, never called by the port); in
-     bf16 with its TFLOP/s, its share of the bound and its ratio to SDPA.
+     ``scaled_dot_product_attention`` in the same dtype (the dense ELL
+     mask at (i), ``is_causal`` at (ii); printed here, never called by the
+     port); in bf16 with its TFLOP/s, its share of the bound and its ratio
+     to SDPA.
   5. A JSON line of the kernels, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
@@ -109,6 +116,11 @@ TILE_PATH_TOL = dict(rtol=0.0, atol=0.0)
 # and K4's slot vector, a few MB (a tile mask alone would be ≈ 1 GB)
 SDDMM_SELL_EXTRA_BYTES = 64 * 2**20
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # K9 in bf16 vs its plain version
+# K1/K5 in bf16 / f16 vs their plain versions: both sum in f32 and round
+# once, so they differ by at most one ulp of the output (2^-7 relative in
+# bf16) beyond the f32 sums' own order
+NARROW_TOL = dict(rtol=1e-2, atol=1e-3)
+BLOCKELL_FILLS = (0.0, 0.01, 0.1, 1.0)
 # phase 4 outputs.  Every row, in both dtypes, against the plain version
 # and the f32 oracle: ||got_r - want_r|| <= ATTN_ROW_RTOL * ||want_r|| +
 # ATTN_ATOL, so a late row that averages thousands of small values is held
@@ -234,6 +246,20 @@ class Port:
         return {k: w.launches for k, w in self.wrappers.items()}
 
 
+def ptxas_instances(log_text: str) -> dict:
+    """Kernel instance (its mangled name's template arguments) -> its
+    spill and register lines in an ``nvcc -Xptxas -v`` log."""
+    usage, inst = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            inst = line.split("Function properties for", 1)[1].strip()
+            inst = inst.split("_kernel", 1)[-1][:48] or inst[-48:]
+            usage[inst] = []
+        elif inst is not None and ("spill" in line or "Used" in line):
+            usage[inst].append(line.split(":", 1)[-1].strip())
+    return usage
+
+
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
     """Median device time of one call, from CUDA events around each.  The
     card first spins for ``HOST_COVER_CYCLES`` (``torch.cuda._sleep``), so
@@ -333,6 +359,78 @@ def ragged_checks(torch, np, port):
             f"{int(sell.tile_row_nnz.max())} nonzeros): max_abs_err "
             + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + " (K2/K6 also held to the tile-granular plain versions)")
+
+
+def ell_sums_close(torch, port, name, got, want, ops) -> float:
+    """K1/K5 against their plain version: sums of up to W*bn f32 terms in
+    two orders (the kernel's, nonzeros in ascending k and slots in order,
+    and einsum's) differ by about √n · eps · Σ|term|, which for a full
+    block-row that cancels is far above KERNEL_TOL's atol; held to twice
+    that on top of the dtype's tolerance.  Returns the largest error."""
+    torch.cuda.synchronize()
+    idx, blocks, h = ops
+    tol = KERNEL_TOL if got.dtype == torch.float32 else NARROW_TOL
+    mag = port.ref.spmm_blockell_ref(idx, blocks.abs(), h.abs()).float()
+    n = blocks.shape[1] * blocks.shape[3]
+    diff = (got.float() - want.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
+        + 2 * torch.finfo(torch.float32).eps * n ** 0.5 * mag
+    worst = float((diff / bound).max()) if diff.numel() else 0.0
+    if got.shape != want.shape or got.dtype != want.dtype or worst > 1:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version, an element is {worst:.2f}x its "
+                             f"tolerance ({tol} + 2 eps √n Σ|term|)")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def ragged_checks_blockell(torch, np, port):
+    """Phase 2 for the streaming K1/K5 kernel: block fills 0, 1 %, 10 %
+    and 100 % with an all-padding block-row, D = 16, 48, 128 (one D-tile)
+    and 130 (two, not 16-byte rows), f32, bf16 and f16; every launch twice,
+    for equal bits."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 5)
+    m, n, bm = 1000, 700, 64
+    epi = port.Epilogue(act="leaky_relu", negative_slope=0.2, has_bias=True,
+                        has_residual=True)
+    k1, k5 = port.wrappers["K1"], port.wrappers["K5"]
+    for fill in BLOCKELL_FILLS:
+        a = np.where(rng.random((m, n)) < fill, rng.standard_normal((m, n)),
+                     0).astype(np.float32)
+        if fill == 1.0:
+            a[a == 0] = 1.0
+        a[bm:2 * bm] = 0.0  # block-row 1: padding slots only
+        ell = port.BlockELL.from_dense(a, bm, bm, device=dev)
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for d in (16, 48, 128, 130):
+                h = torch.randn(ell.shape[1], d, device=dev).to(dtype)
+                tail = (torch.randn(d, device=dev),
+                        torch.randn(ell.shape[0], d, device=dev))
+                ops = (ell.indices, ell.blocks.to(dtype), h)
+                what = f"fill={fill} {dtype} d={d}"
+                for name, run, plain in (
+                        ("K1", lambda: k1(*ops), port.ref.spmm_blockell_ref(
+                            *ops)),
+                        ("K5", lambda: k5(*ops, *tail, epi=epi),
+                         port.fused.spmm_blockell_epilogue_ref(
+                             *ops, *tail, epi=epi))):
+                    got, again = run(), run()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name} {what}: two launches "
+                                             "gave different bits")
+                    err = ell_sums_close(torch, port, f"{name} {what}", got,
+                                         plain, ops)
+                    if not torch.equal(got[bm:2 * bm], plain[bm:2 * bm]):
+                        raise AssertionError(f"{name} {what}: the padding "
+                                             "block-row is not act(bias + "
+                                             "res)")
+                    key = f"{name} {str(dtype).split('.')[-1]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+        log(f"ragged K1/K5 m={m} fill={fill} (W={ell.ell_width}, a "
+            "padding block-row; D = 16, 48, 128, 130; two launches equal "
+            "bit for bit): max_abs_err "
+            + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def ragged_checks_sddmm_attention(torch, np, port):
@@ -568,6 +666,8 @@ def kernel_rows(torch, port, graph, path):
             lambda: torch.sparse.mm(a_lib, h[: graph.n_nodes]), nbytes,
             2 * nnz * d + (0 if epi is None else n_out),
             what + "; library: torch.sparse.mm")
+        if path == "ell":
+            blockell_moves(torch, port, ell, h, nnz, epi, name, args)
         if path == "sell":
             # what do the heaviest rows cost?  The same launch with every
             # row cut to the p99 count, so none is heavy (a diagnostic,
@@ -580,6 +680,28 @@ def kernel_rows(torch, port, graph, path):
             log(f"  {name} with every row cut to {cap} nonzeros (none "
                 f"heavy): {cut_ms:.4f} ms")
     return rows
+
+
+def blockell_moves(torch, port, ell, h, nnz, epi, name, args):
+    """What K1/K5's design moves beside their byte bound, counted from the
+    shapes (no device counter is read): the blocks once and H once through
+    HBM, each slot's H tile from L2 into shared memory, each nonzero's H
+    row from shared memory; and K5 on bf16 blocks and H."""
+    nbr, w, bm, bn = ell.blocks.shape
+    d = h.shape[1]
+    hbm = nbytes_of(ell.indices, ell.blocks, h) + nbr * bm * d * 4
+    l2 = nbr * w * bn * d * 4
+    log(f"  {name} by its design (counted from the shapes, not measured): "
+        f"{hbm / 1e9:.3f} GB through HBM (blocks once, H once, Y), "
+        f"{l2 / 1e9:.3f} GB of H tiles staged from L2, "
+        f"{nnz * d * 4 / 1e9:.3f} GB of H rows read from shared memory")
+    if epi is not None:
+        b16 = (args[0], args[1].bfloat16(), args[2].bfloat16()) + args[3:]
+        ms = time_ms(torch, lambda: port.fused.spmm_blockell_epilogue_kernel(
+            *b16, epi=epi))
+        log(f"  {name} on bf16 blocks and H (half the block bytes; a "
+            f"diagnostic): {ms:.4f} ms")
+        del b16
 
 
 TILE_VIEW_HELPERS = ("sell_tile_blocks", "sell_row_ptr")
@@ -1052,10 +1174,41 @@ def hold_attention(torch, what, got, want, dtype_name, same_rounding):
     return err
 
 
+def time_sdpa(torch, q, k, v, sdpa_kw, out, backends):
+    """``scaled_dot_product_attention`` on K9's inputs in their dtype, on a
+    fused backend only (the math one would build the S x S scores): with
+    ``enable_gqa``, else (f32, where only the memory-efficient backend
+    runs) on K and V repeated to the query heads outside the timed call.
+    Returns its time in ms and a description."""
+    from torch.nn.attention import sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rep = q.shape[0] // k.shape[0]
+    tries = [("enable_gqa", lambda: sdpa(q[None], k[None], v[None],
+                                         enable_gqa=True, **sdpa_kw))]
+    if q.dtype == torch.float32:
+        kr, vr = (t.repeat_interleave(rep, 0)[None] for t in (k, v))
+        tries.append(("K and V repeated to the query heads",
+                      lambda: sdpa(q[None], kr, vr, **sdpa_kw)))
+    for how, library in tries:
+        with sdpa_kernel(backends), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                got = library()
+            except RuntimeError:
+                continue
+            lib_err = float((got[0].float() - out.float()).abs().max())
+            del got
+            ms = time_ms(torch, library)
+        return ms, (f"{ms:.4f} ms ({how}; max_abs_err vs K9 "
+                    f"{lib_err:.3e})")
+    return None, "not timed (no fused SDPA backend took these inputs)"
+
+
 def bsattn_phase(torch, np, port):
     """Phase 4: block-sparse attention at gemma3-4b width through the
     entry point; returns K9's row at (i) in bf16, with launches."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import SDPBackend
 
     dev = torch.device(DEVICE)
     cfg = port.lm_cfg
@@ -1123,20 +1276,8 @@ def bsattn_phase(torch, np, port):
             del oracle
             row = dict(max_abs_err=err, ms=time_ms(torch, run),
                        plain_ms=time_ms(torch, plain), library_ms=None)
-            if dtype == torch.bfloat16:
-                with sdpa_kernel(fused_sdpa), warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    library = lambda: \
-                        torch.nn.functional.scaled_dot_product_attention(
-                            q[None], k[None], v[None], enable_gqa=True,
-                            **sdpa_kw)
-                    lib_err = float((library()[0].float() - out.float())
-                                    .abs().max())
-                    row["library_ms"] = time_ms(torch, library)
-                lib = (f"{row['library_ms']:.4f} ms (max_abs_err vs K9 "
-                       f"{lib_err:.3e})")
-            else:
-                lib = "not timed (no fused SDPA backend takes f32 with GQA)"
+            row["library_ms"], lib = time_sdpa(torch, q, k, v, sdpa_kw, out,
+                                               fused_sdpa)
             nbytes = (2 * h + 2 * hkv) * s * d * q.element_size() \
                 + 2 * ell.numel() * 4
             peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
@@ -1196,7 +1337,8 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    logs = port.build.build()
+    # built anew even where a library exists, so every ptxas log is here
+    logs = port.build.build(force=True)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(port.build.SOURCES)})")
     for name, text in logs.items():
@@ -1205,13 +1347,26 @@ def main() -> int:
                         if "Used" in line or "spill" in line})
         log(f"  {name} (ptxas, distinct over its instances): "
             + " | ".join(usage))
-    if "bsattn" in logs:  # K9 by instance; the bf16 ones must not spill
-        for inst, lines in sorted(port.ptxas_usage(logs["bsattn"]).items()):
-            log(f"  K9 {inst}: " + "; ".join(lines))
-            if inst.startswith("bf16") and port.spill_bytes(lines):
-                raise AssertionError(f"K9 {inst} spills: {lines}")
+    # K9 by instance; the bf16 ones must not spill
+    for inst, lines in sorted(port.ptxas_usage(logs["bsattn"]).items()):
+        log(f"  K9 {inst}: " + "; ".join(lines))
+        if inst.startswith("bf16") and port.spill_bytes(lines):
+            raise AssertionError(f"K9 {inst} spills: {lines}")
+    spills = []
+    for name, text in logs.items():  # every instance that spills
+        for inst, lines in ptxas_instances(text).items():
+            if port.spill_bytes(lines):
+                spills.append(name)
+                log(f"  spill: {name} {inst}: " + "; ".join(lines))
+    log(f"ptxas spills: {len(spills)} instance(s)")
+    for inst, lines in sorted(ptxas_instances(
+            logs["spmm_blockell"]).items()):  # K1/K5: none may spill
+        log(f"  K1/K5 {inst}: " + "; ".join(lines))
+    if "spmm_blockell" in spills:
+        raise AssertionError("a K1/K5 instance spills")
 
     ragged_checks(torch, np, port)
+    ragged_checks_blockell(torch, np, port)
     ragged_checks_sddmm_attention(torch, np, port)
     ragged_checks_bsattn(torch, np, port)
 

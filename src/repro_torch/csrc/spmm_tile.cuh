@@ -1,10 +1,7 @@
-// Tile loop of the Block-ELL SpMM kernels (spmm_blockell.cu, K1 and K5):
-// one CTA owns one (bm x BD) output tile and walks a contiguous range of
-// "slots", each a dense (bm x bn) A block and the block-column of H it
-// multiplies.  A and H tiles are staged in shared
-// memory, the product is FFMA in f32 (no TF32: the reference tolerances
-// are 1e-4 to 1e-5), and the epilogue act(y + bias + residual) is applied
-// in registers before the only store of the tile.
+// Shared pieces of the dense-tile kernels K7/K8 (fused_attention.cu), and
+// the epilogue activation of K1/K5 (spmm_blockell.cu): the CTA's register
+// tile layout, the padded shared-memory A tile, the launch helpers that
+// pick the D-tile and rows per thread, and act().
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,78 +40,6 @@ __host__ __device__ inline size_t a_tile_floats(int rows, int bn) {
 inline size_t smem_bytes(int bd, int rows, int bn) {
   return (a_tile_floats(rows, bn) + static_cast<size_t>(bn) * bd) *
          sizeof(float);
-}
-
-// Slots: .block(s) -> pointer to slot s's bm*bn A block (row-major),
-//        .col(s)   -> block-column of H that slot s multiplies.
-template <int BD, int R, class Slots>
-__device__ __forceinline__ void tile_spmm(
-    const Slots& slots, int begin, int end, const float* __restrict__ h,
-    const float* __restrict__ bias, const float* __restrict__ res,
-    float* __restrict__ y, int out_row0, int bm, int bn, int d, int act,
-    float slope) {
-  constexpr int TX = Layout<BD>::TX;
-  constexpr int TY = Layout<BD>::TY;
-  extern __shared__ __align__(16) float smem[];
-  const int lda = bn + 1;
-  float* As = smem;
-  float* Hs = smem + a_tile_floats(R * TY, bn);
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int col0 = blockIdx.y * BD;
-
-  for (int e = threadIdx.x + bm * lda; e < R * TY * lda; e += kThreads)
-    As[e] = 0.f;
-
-  float acc[R][4];
-#pragma unroll
-  for (int q = 0; q < R; ++q)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[q][c] = 0.f;
-
-  for (int s = begin; s < end; ++s) {
-    const float* __restrict__ a = slots.block(s);
-    const float* __restrict__ hb =
-        h + static_cast<size_t>(slots.col(s)) * bn * d;
-    for (int e = threadIdx.x; e < bm * bn; e += kThreads) {
-      const int r = e / bn;
-      As[r * lda + (e - r * bn)] = a[e];
-    }
-    for (int e = threadIdx.x; e < bn * BD; e += kThreads) {
-      const int k = e / BD;
-      const int gc = col0 + (e - k * BD);
-      Hs[e] = gc < d ? hb[static_cast<size_t>(k) * d + gc] : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < bn; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(&Hs[k * BD + tx * 4]);
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const float av = As[(ty + q * TY) * lda + k];
-        acc[q][0] = fmaf(av, hv.x, acc[q][0]);
-        acc[q][1] = fmaf(av, hv.y, acc[q][1]);
-        acc[q][2] = fmaf(av, hv.z, acc[q][2]);
-        acc[q][3] = fmaf(av, hv.w, acc[q][3]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < R; ++q) {
-    const int r = ty + q * TY;
-    if (r >= bm) continue;
-    const size_t row = static_cast<size_t>(out_row0 + r);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gc = col0 + tx * 4 + c;
-      if (gc >= d) continue;
-      float z = acc[q][c];
-      if (bias != nullptr) z += bias[gc];
-      if (res != nullptr) z += res[row * d + gc];
-      y[row * d + gc] = apply_act(z, act, slope);
-    }
-  }
 }
 
 template <class Kernel>

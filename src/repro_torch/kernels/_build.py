@@ -32,8 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # own name, or another entry point of a source named in ``_SOURCE`` (see
 # the .cu files)
 _SIGNATURES = {
-    "spmm_blockell": ("spmm_blockell_f32",
-                      [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "spmm_blockell": ("spmm_blockell",
+                      [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]),
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles_f32", [_P] * 6 + [_I] * 5 + [_P]),
     "sddmm_sell_slots": ("sddmm_sell_slots_f32", [_P] * 7 + [_I] * 3 + [_P]),
@@ -68,12 +68,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile the named sources that are not built yet, all at once (one
-    ``nvcc`` process each).  Returns each compiled source's ``nvcc``
-    output (``-Xptxas -v``: registers, shared memory, spills); raises
-    with that output if any compile fails."""
-    todo = [n for n in names if not lib_path(n).exists()]
+def build(names: Iterable[str] = SOURCES,
+          force: bool = False) -> Dict[str, str]:
+    """Compile the named sources that are not built yet (every one with
+    ``force``), all at once (one ``nvcc`` process each).  Returns each
+    compiled source's ``nvcc`` output (``-Xptxas -v``: registers, shared
+    memory, spills); raises with that output if any compile fails."""
+    todo = [n for n in names if force or not lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -99,7 +99,7 @@ def launch_bsattn(ell_idx, valid, q, k, v, *, block_q: int, block_kv: int,
     if bkv == 0 or bh % bkv:
         raise ValueError(f"{bh} q heads are not a multiple of {bkv} kv "
                          "heads")
-    check_operand(q, "q", q.dtype, (bh, s, d), dev)
+    check_operand(q, "q", None, (bh, s, d), dev)
     check_operand(k, "k", q.dtype, (bkv, s, d), dev)
     check_operand(v, "v", q.dtype, (bkv, s, d), dev)
     check_operand(ell_idx, "ell_idx", torch.int32, (nq, n_slots), dev)

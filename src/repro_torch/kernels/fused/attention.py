@@ -19,7 +19,9 @@ wrappers are the reference's two-sweep (an explicit max pass, then the
 exp / sum / accumulate pass), so kernel-vs-plain parity also pins the
 online rescaling.  The csr and dense paths are plain compositions.
 Each wrapper runs its plain version for CPU tensors and its kernel for
-CUDA tensors, and counts launches in ``<wrapper>.launches``.
+CUDA tensors, and counts launches in ``<wrapper>.launches``.  Every path
+takes f32, bf16 or f16 operands, computes in f32 and returns the
+reference's default output dtype, ``result_type(q, v)``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused.epilogue import apply_act
 from repro_torch.kernels.spmm.kernel import (ACT_CODES, check_geometry,
-                                             check_operand, require_cuda)
+                                             check_operand, require_cuda,
+                                             result_dtype)
 from repro_torch.kernels.spmm.sell import sell_row_ptr, sell_tile_blocks
 
 NEG_INF = -1e30   # finite: masked - masked stays nan-free
@@ -62,17 +65,23 @@ def launch_attention(row_ptr, cols, blocks, q, kt, v, n_rows: int, w: int,
                      act: str, slope: float, what: str) -> torch.Tensor:
     """Check the operands and launch ``csrc/fused_attention.cu`` on the
     current stream (``row_ptr`` None: Block-ELL of width ``w``); returns
-    Y [n_rows*bm, D]."""
+    Y [n_rows*bm, D] in ``result_type(q, v)``.  The kernel loads f32:
+    narrower operands are promoted to f32 here (exact for bf16 and f16)
+    and Y is cast after the launch, which gives what a kernel loading them
+    natively and computing in f32 gives."""
     dev = v.device
     bm, bn = blocks.shape[-2:]
     dk = q.shape[1]
     n, d = v.shape
     check_geometry(bm, bn, n)
+    out = result_dtype(q, v)
+    result_dtype(blocks, kt)  # raises on a dtype the kernel does not take
     check_operand(cols, "cols", torch.int32, tuple(blocks.shape[:-2]), dev)
-    check_operand(blocks, "blocks", torch.float32, tuple(blocks.shape), dev)
-    check_operand(q, "q", torch.float32, (n_rows * bm, dk), dev)
-    check_operand(kt, "kt", torch.float32, (dk, n), dev)
-    check_operand(v, "v", torch.float32, (n, d), dev)
+    check_operand(blocks, "blocks", None, tuple(blocks.shape), dev)
+    check_operand(q, "q", None, (n_rows * bm, dk), dev)
+    check_operand(kt, "kt", None, (dk, n), dev)
+    check_operand(v, "v", None, (n, d), dev)
+    blocks, q, kt, v = blocks.float(), q.float(), kt.float(), v.float()
     y = torch.empty((n_rows * bm, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.entry("fused_attention")(
@@ -82,7 +91,7 @@ def launch_attention(row_ptr, cols, blocks, q, kt, v, n_rows: int, w: int,
             ACT_CODES[act], float(slope),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
-    return y
+    return y.to(out)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +120,7 @@ def fused_attn_blockell_ref(indices, blocks, q, kt, v, *,
     den = p.sum(dim=(1, 3))                                   # sweep 2
     y = torch.einsum("iwmn,iwnd->imd", p, vb)
     y = y / den.clamp_min(EPS)[:, :, None]
-    return y.reshape(nbr * bm, d)
+    return y.reshape(nbr * bm, d).to(torch.promote_types(q.dtype, v.dtype))
 
 
 def fused_attn_blockell_kernel(indices: torch.Tensor, blocks: torch.Tensor,
@@ -162,7 +171,8 @@ def fused_attn_blockcoo_ref(coo: BlockCOO, q, kt, v, *,
     vb = v.reshape(np_ // bn, bn, d)[coo.cols].float()
     mask = coo.blocks != 0
     s = _scores(qb, ktb, mask, act, slope)
-    return _two_sweep(s, mask, coo.rows, mp // bm, vb).reshape(mp, d)
+    return _two_sweep(s, mask, coo.rows, mp // bm, vb).reshape(mp, d).to(
+        torch.promote_types(q.dtype, v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +197,8 @@ def fused_attn_sell_tiles_ref(tile_rows, tile_cols, mask_blocks, q_perm, kt,
     mask = mask_blocks != 0
     s = _scores(qb, ktb, mask, act, slope)
     return _two_sweep(s, mask, tile_rows, n_live_block_rows, vb) \
-        .reshape(n_live_block_rows * bm, d)
+        .reshape(n_live_block_rows * bm, d) \
+        .to(torch.promote_types(q_perm.dtype, v.dtype))
 
 
 def fused_attn_sell_kernel(tile_rows: torch.Tensor, tile_cols: torch.Tensor,
@@ -227,7 +238,8 @@ def fused_attn_sell(sell: SellCS, q, kt, v, *, act: str = "leaky_relu",
     dk = q.shape[1]
     d = v.shape[1]
     if sell.n_tiles == 0:
-        return v.new_zeros((m, d), dtype=torch.float32)
+        return v.new_zeros((m, d), dtype=torch.promote_types(q.dtype,
+                                                             v.dtype))
     n_pad = -(-n // sell.bn) * sell.bn
     q_perm = torch.cat([q, q.new_zeros((1, dk))])[sell.perm]
     kt = F.pad(kt, (0, n_pad - kt.shape[1])).contiguous()
@@ -270,7 +282,8 @@ def fused_attn_elements(row_ids, col_ids, values, q, kt, v, m: int, *,
     ex = torch.where(mask, torch.exp(e - mx[idx]), 0.0)
     den = e.new_zeros((m,)).index_add_(0, idx, ex)
     alpha = ex / den[idx].clamp_min(EPS)
-    return spmm_elements(row_ids, col_ids, alpha.to(v.dtype), v, m).float()
+    return spmm_elements(row_ids, col_ids, alpha.to(v.dtype), v, m).to(
+        torch.promote_types(q.dtype, v.dtype))
 
 
 def fused_attn_dense(a_dense, q, kt, v, *, act: str = "leaky_relu",
@@ -282,4 +295,4 @@ def fused_attn_dense(a_dense, q, kt, v, *, act: str = "leaky_relu",
     mx = e.amax(dim=1, keepdim=True)
     p = torch.where(mask, torch.exp(e - mx), 0.0)
     den = p.sum(dim=1, keepdim=True).clamp_min(EPS)
-    return (p / den) @ v.float()
+    return ((p / den) @ v.float()).to(torch.promote_types(q.dtype, v.dtype))

@@ -9,9 +9,12 @@ so the raw product never makes a round trip through device memory.  K6,
 like K2, reads the nonzeros through the row view of ``SellCS``, not
 dense tiles.
 
-Each wrapper runs its plain version (K1's or K2's plain version, then
+Each wrapper runs its plain version (K1's or K2's f32 sum, then
 ``apply_epilogue``) for CPU tensors and its kernel for CUDA tensors, and
-counts launches in ``<wrapper>.launches``.
+counts launches in ``<wrapper>.launches``.  Operands may be f32, bf16 or
+f16; bias and residual are added in f32 and the result is rounded once,
+after the epilogue, to ``result_type(blocks or slot_vals, h)``, as the
+reference's kernels do.
 """
 from __future__ import annotations
 
@@ -23,10 +26,10 @@ import torch.nn.functional as F
 from repro_torch.core.formats import BlockELL, SellCS
 from repro_torch.kernels.fused.epilogue import Epilogue, apply_epilogue
 from repro_torch.kernels.spmm.kernel import launch_blockell, require_cuda
-from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+from repro_torch.kernels.spmm.ref import spmm_blockell_f32
 from repro_torch.kernels.spmm.sell import (launch_sell, sell_row_operands,
-                                           spmm_sell_slots_ref,
-                                           spmm_sell_tiles_ref)
+                                           spmm_sell_slots_f32,
+                                           spmm_sell_tiles_f32)
 
 
 def _check_spec(epi: Epilogue, bias, res) -> None:
@@ -43,9 +46,10 @@ def _check_spec(epi: Epilogue, bias, res) -> None:
 
 def spmm_blockell_epilogue_ref(indices, blocks, h, bias, res, *,
                                epi: Epilogue) -> torch.Tensor:
-    """Plain version of K5: act(A @ H + bias + res), [nbr*bm, D]."""
-    return apply_epilogue(spmm_blockell_ref(indices, blocks, h), epi, bias,
-                          res)
+    """Plain version of K5: act(A @ H + bias + res), [nbr*bm, D], the
+    epilogue on the f32 sum, rounded once to ``result_type(blocks, h)``."""
+    return apply_epilogue(spmm_blockell_f32(indices, blocks, h), epi, bias,
+                          res).to(torch.promote_types(blocks.dtype, h.dtype))
 
 
 def spmm_blockell_epilogue_kernel(indices, blocks, h, bias, res, *,
@@ -95,19 +99,23 @@ def spmm_sell_epilogue_ref(tile_rows, tile_cols, tile_blocks, h, bias,
                            res_perm, *, epi: Epilogue,
                            n_live_block_rows: int) -> torch.Tensor:
     """Tile-granular plain version of K6 (over ``sell_tile_blocks``): the
-    compact act(A @ H + bias + res_perm)."""
-    y = spmm_sell_tiles_ref(tile_rows, tile_cols, tile_blocks, h,
+    compact act(A @ H + bias + res_perm), the epilogue on the f32 sum,
+    rounded once to ``result_type(tile_blocks, h)``."""
+    y = spmm_sell_tiles_f32(tile_rows, tile_cols, tile_blocks, h,
                             n_live_block_rows=n_live_block_rows)
-    return apply_epilogue(y, epi, bias, res_perm)
+    return apply_epilogue(y, epi, bias, res_perm).to(
+        torch.promote_types(tile_blocks.dtype, h.dtype))
 
 
 def spmm_sell_epilogue_slots_ref(row_slot, row_nnz, slot_cols, slot_vals,
                                  h, bias, res_perm, *,
                                  epi: Epilogue) -> torch.Tensor:
     """Plain version of K6 over its own operands: the compact
-    act(A @ H + bias + res_perm), [R, D]."""
-    y = spmm_sell_slots_ref(row_slot, row_nnz, slot_cols, slot_vals, h)
-    return apply_epilogue(y, epi, bias, res_perm)
+    act(A @ H + bias + res_perm), [R, D], the epilogue on the f32 sum,
+    rounded once to ``result_type(slot_vals, h)``."""
+    y = spmm_sell_slots_f32(row_slot, row_nnz, slot_cols, slot_vals, h)
+    return apply_epilogue(y, epi, bias, res_perm).to(
+        torch.promote_types(slot_vals.dtype, h.dtype))
 
 
 def spmm_sell_epilogue_kernel(row_slot, row_nnz, slot_cols, slot_vals, h,
@@ -146,8 +154,8 @@ def spmm_sell_fused(sell: SellCS, h: torch.Tensor, epi: Epilogue,
     m, _ = sell.shape
     d = h.shape[1]
     if sell.n_live_block_rows == 0:
-        return apply_epilogue(h.new_zeros((m, d), dtype=torch.float32), epi,
-                              bias, residual)
+        return apply_epilogue(h.new_zeros((m, d), dtype=torch.promote_types(
+            sell.slot_vals.dtype, h.dtype)), epi, bias, residual)
     res_perm = None
     if epi.has_residual:
         res_ext = torch.cat([residual, residual.new_zeros((1, d))])

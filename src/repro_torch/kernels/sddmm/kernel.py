@@ -17,12 +17,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
 from repro_torch.kernels.spmm.kernel import (check_geometry, check_operand,
-                                             require_cuda)
+                                             require_cuda, result_dtype)
 
 
 def launch_tiles(rows, cols, mask_blocks, b, c, what: str) -> torch.Tensor:
     """Check the operands and launch the tile kernel of ``csrc/sddmm.cu``
-    (K3's) on the current stream; returns Y [T, bm, bn]."""
+    (K3's) on the current stream; returns Y [T, bm, bn] in
+    ``result_type(mask_blocks, b)``.  The kernel loads f32: narrower
+    operands are promoted to f32 here (exact for bf16 and f16) and Y is
+    cast after the launch, which gives what a kernel loading them
+    natively and summing in f32 gives."""
     dev = b.device
     t_count, bm, bn = mask_blocks.shape
     m, k = b.shape
@@ -30,12 +34,15 @@ def launch_tiles(rows, cols, mask_blocks, b, c, what: str) -> torch.Tensor:
     check_geometry(bm, bn, n)
     if m % bm:
         raise ValueError(f"B has {m} rows, not a multiple of bm={bm}")
+    out = result_dtype(mask_blocks, b)
+    result_dtype(c)  # raises on a dtype the kernel does not take
     check_operand(rows, "rows", torch.int32, (t_count,), dev)
     check_operand(cols, "cols", torch.int32, (t_count,), dev)
-    check_operand(mask_blocks, "mask_blocks", torch.float32,
+    check_operand(mask_blocks, "mask_blocks", None,
                   (t_count, bm, bn), dev)
-    check_operand(b, "b", torch.float32, (m, k), dev)
-    check_operand(c, "c", torch.float32, (k, n), dev)
+    check_operand(b, "b", None, (m, k), dev)
+    check_operand(c, "c", None, (k, n), dev)
+    mask_blocks, b, c = mask_blocks.float(), b.float(), c.float()
     y = torch.empty((t_count, bm, bn), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.entry("sddmm")(
@@ -43,15 +50,15 @@ def launch_tiles(rows, cols, mask_blocks, b, c, what: str) -> torch.Tensor:
             b.data_ptr(), c.data_ptr(), y.data_ptr(), t_count, bm, bn, k, n,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
-    return y
+    return y.to(out)
 
 
 def sddmm_blockcoo_kernel(rows: torch.Tensor, cols: torch.Tensor,
                           mask_blocks: torch.Tensor, b: torch.Tensor,
                           c: torch.Tensor) -> torch.Tensor:
     """K3: Y[e] = mask[e] ⊙ (B[rows[e]-block] @ C[:, cols[e]-block]),
-    f32 [nnzb, bm, bn]; ``b`` [Mp, K] and ``c`` [K, Np] padded to the
-    block grid."""
+    [nnzb, bm, bn] in ``result_type(mask_blocks, b)``; ``b`` [Mp, K] and
+    ``c`` [K, Np] padded to the block grid."""
     if b.device.type == "cpu":
         return sddmm_blockcoo_ref(rows, cols, mask_blocks, b, c)
     require_cuda(b, "sddmm_blockcoo_kernel")

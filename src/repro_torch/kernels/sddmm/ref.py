@@ -33,10 +33,12 @@ def masked_tile_products(rows: torch.Tensor, cols: torch.Tensor,
 def sddmm_blockcoo_ref(rows: torch.Tensor, cols: torch.Tensor,
                        mask_blocks: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: f32 [nnzb, bm, bn] output blocks.
+    """Plain version of K3: [nnzb, bm, bn] output blocks, summed in f32,
+    in ``result_type(mask_blocks, b)`` (the reference's default).
 
     ``mask_blocks`` are A's values at its nonzero blocks (a 0/1 mask gives
     the sampled product; weighted A gives A ⊙ (B C)); padded entries carry
     zero blocks, so their output is zero.
     """
-    return masked_tile_products(rows, cols, mask_blocks, b, c)
+    return masked_tile_products(rows, cols, mask_blocks, b, c).to(
+        torch.promote_types(mask_blocks.dtype, b.dtype))

@@ -22,16 +22,19 @@ import torch
 from repro_torch.core.formats import SellCS
 from repro_torch.kernels import _build
 from repro_torch.kernels.sddmm.ref import masked_tile_products
-from repro_torch.kernels.spmm.kernel import check_operand, require_cuda
+from repro_torch.kernels.spmm.kernel import (check_operand, require_cuda,
+                                             result_dtype)
 
 
 def sddmm_sell_tiles_ref(tile_rows, tile_cols, mask_blocks, b_perm,
                          c) -> torch.Tensor:
     """Tile-granular plain version (the Pallas kernel's function):
     ``mask[t] ⊙ (B_perm[tile_rows[t]-block] @ C[:, tile_cols[t]-
-    block])``, f32 [T, bm, bn]; ``b_perm`` [n_live*bm, K], ``c``
-    [K, Np]."""
-    return masked_tile_products(tile_rows, tile_cols, mask_blocks, b_perm, c)
+    block])``, [T, bm, bn] in ``result_type(mask_blocks, b_perm)``;
+    ``b_perm`` [n_live*bm, K], ``c`` [K, Np]."""
+    return masked_tile_products(tile_rows, tile_cols, mask_blocks, b_perm,
+                                c).to(torch.promote_types(mask_blocks.dtype,
+                                                          b_perm.dtype))
 
 
 def sddmm_sell_operands(sell: SellCS) -> Tuple[torch.Tensor, ...]:
@@ -44,7 +47,7 @@ def sddmm_sell_slots_ref(row_slot, row_nnz, perm, slot_cols, b,
                          c) -> torch.Tensor:
     """Plain version of K4: y[row_slot[r] + j] = B[perm[r]] ·
     C[:, slot_cols[row_slot[r] + j]] for j < row_nnz[r]; every other slot
-    0.  f32 [n_slots]."""
+    0.  [n_slots], summed in f32 and returned in f32."""
     counts = row_nnz.long()
     rows = torch.repeat_interleave(
         torch.arange(row_slot.shape[0], device=b.device), counts)
@@ -61,20 +64,24 @@ def sddmm_sell_slots_ref(row_slot, row_nnz, perm, slot_cols, b,
 def launch_sell_slots(row_slot, row_nnz, perm, slot_cols, b,
                       c) -> torch.Tensor:
     """Check the operands and launch K4 (``csrc/sddmm.cu``) on the current
-    stream; returns y [n_slots].  Every ``perm`` entry of a row with
-    nonzeros must be below ``b``'s row count and every column it reads
-    below ``c``'s (``SellCS`` guarantees both; checking them here would
-    cost a host sync)."""
+    stream; returns y [n_slots] in f32.  Every ``perm`` entry of a row
+    with nonzeros must be below ``b``'s row count and every column it
+    reads below ``c``'s (``SellCS`` guarantees both; checking them here
+    would cost a host sync).  The kernel loads f32: narrower B and C are
+    promoted to f32 here (exact for bf16 and f16), which gives what a
+    kernel loading them natively and summing in f32 gives."""
     dev = b.device
     n_rows, n_slots = row_slot.shape[0], slot_cols.shape[0]
     m, k = b.shape
     n = c.shape[1]
+    result_dtype(b, c)  # raises on a dtype the kernels do not take
     check_operand(row_slot, "row_slot", torch.int32, (n_rows,), dev)
     check_operand(row_nnz, "row_nnz", torch.int32, (n_rows,), dev)
     check_operand(perm, "perm", torch.int32, (n_rows,), dev)
     check_operand(slot_cols, "slot_cols", torch.int32, (n_slots,), dev)
-    check_operand(b, "b", torch.float32, (m, k), dev)
-    check_operand(c, "c", torch.float32, (k, n), dev)
+    check_operand(b, "b", None, (m, k), dev)
+    check_operand(c, "c", None, (k, n), dev)
+    b, c = b.float(), c.float()
     y = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.entry("sddmm_sell_slots")(
@@ -90,7 +97,9 @@ def sddmm_sell_kernel(row_slot: torch.Tensor, row_nnz: torch.Tensor,
                       b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """K4: the raw dots B[perm[r]] · C[:, col] at every structural nonzero
     of every compact row r, in slot order, 0 elsewhere; ``b`` [M, K]
-    logical rows, ``c`` [K, N] logical columns; f32 [n_slots]."""
+    logical rows, ``c`` [K, N] logical columns; [n_slots] in f32 whatever
+    B and C are, as the reference's tile route returns them
+    (``repro.kernels.sddmm.sell.sample_sell_blocked``)."""
     if b.device.type == "cpu":
         return sddmm_sell_slots_ref(row_slot, row_nnz, perm, slot_cols, b, c)
     require_cuda(b, "sddmm_sell_kernel")
@@ -107,7 +116,7 @@ def sample_sell_blocked(sell: SellCS, b: torch.Tensor,
     """Raw dots (B @ C) at the live structural slots, in slot order.
 
     ``b``: [M, K] logical rows; ``c``: [K, N] logical columns.  Output:
-    f32 [n_slots]; padding slots (and those of a matrix with no live
+    float32[n_slots]; padding slots (and those of a matrix with no live
     tile) are 0.
     """
     if sell.n_tiles == 0:

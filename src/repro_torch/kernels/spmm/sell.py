@@ -29,14 +29,12 @@ from repro_torch.core.formats import SELL_HEAVY_ROW_NNZ, SellCS
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused.epilogue import IDENTITY, Epilogue
 from repro_torch.kernels.spmm.kernel import (ACT_CODES, check_operand,
-                                             require_cuda)
+                                             require_cuda, result_dtype)
 
 
-def spmm_sell_tiles_ref(tile_rows, tile_cols, tile_blocks, h, *,
+def spmm_sell_tiles_f32(tile_rows, tile_cols, tile_blocks, h, *,
                         n_live_block_rows: int) -> torch.Tensor:
-    """Tile-granular plain version of K2's compact output [n_live*bm, D]
-    (``index_add_`` takes the place of ``segment_sum``); ``h`` padded to
-    the block-column grid."""
+    """The f32 sum behind ``spmm_sell_tiles_ref``, before any rounding."""
     t_count, bm, bn = tile_blocks.shape
     n, d = h.shape
     if n % bn:
@@ -49,6 +47,17 @@ def spmm_sell_tiles_ref(tile_rows, tile_cols, tile_blocks, h, *,
     return out.reshape(n_live_block_rows * bm, d)
 
 
+def spmm_sell_tiles_ref(tile_rows, tile_cols, tile_blocks, h, *,
+                        n_live_block_rows: int) -> torch.Tensor:
+    """Tile-granular plain version of K2's compact output [n_live*bm, D]
+    (``index_add_`` takes the place of ``segment_sum``); ``h`` padded to
+    the block-column grid; f32 sums, ``result_type(tiles, h)`` out."""
+    return spmm_sell_tiles_f32(
+        tile_rows, tile_cols, tile_blocks, h,
+        n_live_block_rows=n_live_block_rows).to(
+            torch.promote_types(tile_blocks.dtype, h.dtype))
+
+
 def sell_row_operands(sell: SellCS) -> Tuple[torch.Tensor, ...]:
     """K2's and K6's topology operands: (``tile_row_slot``,
     ``tile_row_nnz``, ``slot_cols``, ``slot_vals``)."""
@@ -56,10 +65,9 @@ def sell_row_operands(sell: SellCS) -> Tuple[torch.Tensor, ...]:
         sell.slot_vals
 
 
-def spmm_sell_slots_ref(row_slot, row_nnz, slot_cols, slot_vals,
+def spmm_sell_slots_f32(row_slot, row_nnz, slot_cols, slot_vals,
                         h) -> torch.Tensor:
-    """Plain version of K2: Y[r] = sum over row r's nonzeros (slots
-    ``row_slot[r]`` .. ``+ row_nnz[r]``) of val · H[col]; [R, D]."""
+    """The f32 sum behind ``spmm_sell_slots_ref``, before any rounding."""
     n_rows, d = row_slot.shape[0], h.shape[1]
     counts = row_nnz.long()
     rows = torch.repeat_interleave(
@@ -74,6 +82,16 @@ def spmm_sell_slots_ref(row_slot, row_nnz, slot_cols, slot_vals,
     return out
 
 
+def spmm_sell_slots_ref(row_slot, row_nnz, slot_cols, slot_vals,
+                        h) -> torch.Tensor:
+    """Plain version of K2: Y[r] = sum over row r's nonzeros (slots
+    ``row_slot[r]`` .. ``+ row_nnz[r]``) of val · H[col]; [R, D], summed
+    in f32, in ``result_type(slot_vals, h)``."""
+    return spmm_sell_slots_f32(row_slot, row_nnz, slot_cols, slot_vals,
+                               h).to(torch.promote_types(slot_vals.dtype,
+                                                         h.dtype))
+
+
 def launch_sell(row_slot, row_nnz, slot_cols, slot_vals, h, bias, res_perm,
                 epi: Epilogue, heavy_rows, what: str) -> torch.Tensor:
     """Check the operands and launch ``csrc/spmm_sell.cu`` on the current
@@ -81,21 +99,32 @@ def launch_sell(row_slot, row_nnz, slot_cols, slot_vals, h, bias, res_perm,
     row reads must be below ``h``'s row count, and ``heavy_rows`` must
     list exactly the rows with more than ``SELL_HEAVY_ROW_NNZ`` nonzeros
     (``SellCS`` guarantees both; checking them here would cost a host
-    sync)."""
+    sync).
+
+    The kernel loads f32: narrower operands are promoted to f32 here
+    (exact for bf16 and f16) and Y is cast to ``result_type(slot_vals,
+    h)`` after the launch, which gives what a kernel loading them natively
+    and summing in f32 gives."""
     dev = h.device
     n_rows, s_count = row_slot.shape[0], slot_cols.shape[0]
     n, d = h.shape
+    out = result_dtype(slot_vals, h)
     check_operand(row_slot, "row_slot", torch.int32, (n_rows,), dev)
     check_operand(row_nnz, "row_nnz", torch.int32, (n_rows,), dev)
     check_operand(heavy_rows, "heavy_rows", torch.int32,
                   (heavy_rows.shape[0],), dev)
     check_operand(slot_cols, "slot_cols", torch.int32, (s_count,), dev)
-    check_operand(slot_vals, "slot_vals", torch.float32, (s_count,), dev)
-    check_operand(h, "h", torch.float32, (n, d), dev)
+    check_operand(slot_vals, "slot_vals", None, (s_count,), dev)
+    check_operand(h, "h", None, (n, d), dev)
+    slot_vals, h = slot_vals.float(), h.float()
     if epi.has_bias:
-        check_operand(bias, "bias", torch.float32, (d,), dev)
+        check_operand(bias, "bias", None, (d,), dev)
+        result_dtype(bias)  # raises on a dtype the kernels do not take
+        bias = bias.float()
     if epi.has_residual:
-        check_operand(res_perm, "residual", torch.float32, (n_rows, d), dev)
+        check_operand(res_perm, "residual", None, (n_rows, d), dev)
+        result_dtype(res_perm)
+        res_perm = res_perm.float()
     y = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.entry("spmm_sell")(
@@ -107,7 +136,7 @@ def launch_sell(row_slot, row_nnz, slot_cols, slot_vals, h, bias, res_perm,
             d, ACT_CODES[epi.act], float(epi.negative_slope),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
-    return y
+    return y.to(out)
 
 
 def spmm_sell_kernel(row_slot, row_nnz, slot_cols, slot_vals, h, *,
@@ -165,7 +194,8 @@ def spmm_sell_blocked(sell: SellCS, h: torch.Tensor) -> torch.Tensor:
     m, _ = sell.shape
     d = h.shape[1]
     if sell.n_live_block_rows == 0:
-        return h.new_zeros((m, d), dtype=torch.float32)
+        return h.new_zeros((m, d), dtype=torch.promote_types(
+            sell.slot_vals.dtype, h.dtype))
     y = spmm_sell_kernel(*sell_row_operands(sell), h.contiguous(),
                          heavy_rows=sell.tile_heavy_rows)
     y_ext = torch.cat([y, y.new_zeros((1, d))])

@@ -86,7 +86,10 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
     if path == PATH_CSR:
         return paths.sddmm_element_dots(form[0], form[1], b, c)
     if path == PATH_SELL:
-        return paths.sample_sell(form, b, c)
+        # K4 returns f32, as the reference's tile route does; cast once to
+        # the dtype of the element dots, which the reference's sell path
+        # returns when it runs no kernel, so every path agrees
+        return paths.sample_sell(form, b, c).to(b.dtype)
     if path == PATH_ELL:
         coo = paths.ell_to_coo(form) if form_name == "ell" else form
         ones = BlockCOO(rows=coo.rows, cols=coo.cols,

@@ -54,14 +54,16 @@ def spmm_ell(ell: BlockELL, h):
 def spmm_coo(coo: BlockCOO, h):
     """Y = A @ H with A in Block-COO (``index_add_`` over the nonzero
     blocks; padded entries carry zero blocks); H padded to
-    coo.shape[1]."""
+    coo.shape[1]; f32 sums in ``result_type(blocks, h)``, as the
+    Block-ELL path."""
     mp, np_ = coo.shape
     _, bm, bn = coo.blocks.shape
     d = h.shape[1]
     prods = torch.einsum("emn,end->emd", coo.blocks.float(),
                          h.reshape(np_ // bn, bn, d)[coo.cols].float())
     out = prods.new_zeros((mp // bm, bm, d)).index_add_(0, coo.rows, prods)
-    return out.reshape(mp, d).to(h.dtype)
+    return out.reshape(mp, d).to(torch.promote_types(coo.blocks.dtype,
+                                                     h.dtype))
 
 
 def sddmm_blocked(coo: BlockCOO, b, c) -> BlockCOO:

@@ -6,8 +6,14 @@ ragged edges, K / dk and D-tile widths, all three edge activations, and
 for K9 the causal / window flags, GQA and custom ELL patterns (and for its
 bf16 tensor-core instances padded head dims, key chunks cut by block_kv,
 large logits and empty block-rows); K4 besides, exactly, against the tile
-kernel it replaced; and GCN and GAT serving, the SDDMM front-end and
-block-sparse attention on the card against the same calls on the CPU.
+kernel it replaced; K1/K5's streaming kernel at block fills 0 to 100 %,
+all-padding and empty block-rows, ragged D, bm != bn, grids that the
+kernel splits over clusters of 2 and 4 CTAs, in f32, bf16 and f16,
+launched twice for equal bits; K2-K4 and K6-K8 on bf16
+and f16 operands (one rounding to the output dtype: rtol 1e-2 is more
+than one bf16 ulp, 2^-7, atol 1e-3); and GCN and GAT serving, the SDDMM
+front-end and block-sparse attention on the card against the same calls
+on the CPU.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -40,7 +46,8 @@ from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
 from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
                                             sddmm_sell_operands,
                                             sddmm_sell_slots_ref)
-from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
+from repro_torch.kernels.spmm.kernel import (launch_blockell,
+                                             spmm_blockell_kernel)
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
 from repro_torch.kernels.spmm.sell import (sell_row_operands,
                                            sell_tile_blocks,
@@ -73,6 +80,12 @@ def _sparse(seed, m, n, density):
                     0).astype(np.float32)
 
 
+NARROW_TOL = dict(rtol=1e-2, atol=1e-3)
+DTYPE_TOL = {torch.float32: TOL, torch.bfloat16: NARROW_TOL,
+             torch.float16: NARROW_TOL}
+NARROW = [torch.bfloat16, torch.float16]
+
+
 def test_kernels_build(dev):
     _build.build()
     for name in _build.SOURCES:
@@ -100,6 +113,181 @@ def test_blockell_kernels_match_plain(dev, block, d):
         torch.testing.assert_close(
             spmm_blockell_epilogue_kernel(*ops, *tail, epi=epi),
             spmm_blockell_epilogue_ref(*ops, *tail, epi=epi), **TOL)
+
+
+FILLS = [0.0, 0.01, 0.1, 1.0]
+ELL_BLOCKS = [(64, 64), (64, 32), (32, 64), (128, 128), (5, 7)]
+ELL_WIDTHS = [16, 48, 128, 130]
+
+
+def _ell_operands(dev, seed, fill, block, d, dtype, m=301, n=277):
+    """Block-ELL of a (m x n) matrix at the given fill, whose block-row 1
+    holds no nonzero (all padding slots), with H, bias and residual."""
+    bm, bn = block
+    a = _sparse(seed, m, n, fill)
+    if fill == 1.0:
+        a[a == 0] = 1.0
+    a[bm:2 * bm] = 0.0
+    ell = BlockELL.from_dense(a, bm, bn, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(ell.shape[1], d, device=dev, generator=gen).to(dtype)
+    tail = (torch.randn(d, device=dev, generator=gen),
+            torch.randn(ell.shape[0], d, device=dev, generator=gen))
+    return ell.indices, ell.blocks.to(dtype), h, tail
+
+
+def _assert_ell_sums_close(got, want, ops):
+    """Sums of up to W*bn f32 terms in two orders (the kernel's, nonzeros
+    in ascending k, slots in order, and einsum's) differ by about
+    √n · eps · Σ|term|, which for a full block-row that cancels is far
+    above TOL's atol; held to twice that on top of the dtype's tolerance
+    (the plain version's own rounding of the same sum)."""
+    idx, blocks, h = ops
+    mag = spmm_blockell_ref(idx, blocks.abs(), h.abs()).float()
+    eps = torch.finfo(torch.float32).eps
+    tol = DTYPE_TOL[got.dtype]
+    n = blocks.shape[1] * blocks.shape[3]
+    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
+        + 2 * eps * n ** 0.5 * mag
+    worst = float(((got.float() - want.float()).abs() / bound).max())
+    assert worst <= 1, f"an element is {worst:.2f}x its tolerance"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("block", ELL_BLOCKS)
+@pytest.mark.parametrize("d", ELL_WIDTHS)
+def test_blockell_streaming_kernel(dev, dtype, fill, block, d):
+    """K1 and K5 (leaky_relu, bias, residual) against their plain versions
+    at block fills 0, 1 %, 10 % and 100 %, on blocks whose bytes are not a
+    multiple of 16 (5 x 7: copied by the producer's lanes), two D-tiles
+    (D = 130, and 128 at 128 x 128 blocks), in the output dtype; the
+    all-padding block-row is exactly act(bias + res)."""
+    bm = block[0]
+    idx, blocks, h, tail = _ell_operands(dev, d + bm, fill, block, d, dtype)
+    epi = Epilogue(act="leaky_relu", negative_slope=0.2, has_bias=True,
+                   has_residual=True)
+    before = (spmm_blockell_kernel.launches,
+              spmm_blockell_epilogue_kernel.launches)
+    got = spmm_blockell_kernel(idx, blocks, h)
+    assert got.dtype == dtype
+    _assert_ell_sums_close(got, spmm_blockell_ref(idx, blocks, h),
+                           (idx, blocks, h))
+    assert bool((got[bm:2 * bm] == 0).all())
+    got = spmm_blockell_epilogue_kernel(idx, blocks, h, *tail, epi=epi)
+    want = spmm_blockell_epilogue_ref(idx, blocks, h, *tail, epi=epi)
+    _assert_ell_sums_close(got, want, (idx, blocks, h))
+    torch.testing.assert_close(got[bm:2 * bm], want[bm:2 * bm], rtol=0,
+                               atol=0)
+    assert (spmm_blockell_kernel.launches,
+            spmm_blockell_epilogue_kernel.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+@pytest.mark.parametrize("block_rows", [16, 66, 100])
+def test_blockell_split_is_deterministic(dev, dtype, block_rows):
+    """The kernel splits a block-row's slots over a cluster of CTAs
+    (reduced through distributed shared memory in rank order) where that
+    takes fewer waves for the same work: on an H100 (132 SMs, one CTA
+    each) 16 block-rows take 4 CTAs each, 66 take 2 and 100 take 1.
+    Each matches the plain version, and two launches give the same
+    bits."""
+    idx, blocks, h, tail = _ell_operands(dev, 7, 0.1, (64, 64), 128, dtype,
+                                         m=64 * block_rows, n=4000)
+    epi = Epilogue(act="relu", has_bias=True, has_residual=True)
+    runs = [launch_blockell(idx, blocks, h, *tail, epi, "K5")
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _assert_ell_sums_close(
+        runs[0], spmm_blockell_epilogue_ref(idx, blocks, h, *tail, epi=epi),
+        (idx, blocks, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+def test_blockell_edges(dev, dtype):
+    """H that is not 16-byte aligned (copied by the producer's lanes),
+    mixed operand dtypes (promoted), and W = 0 (every row act(bias +
+    res))."""
+    idx, blocks, h, tail = _ell_operands(dev, 3, 0.1, (64, 64), 48, dtype)
+    flat = torch.empty(h.numel() + 1, dtype=dtype, device=dev)
+    flat[1:] = h.reshape(-1)
+    h_off = flat[1:].view(h.shape)
+    assert h_off.data_ptr() % 16
+    torch.testing.assert_close(spmm_blockell_kernel(idx, blocks, h_off),
+                               spmm_blockell_ref(idx, blocks, h),
+                               **DTYPE_TOL[dtype])
+    got = spmm_blockell_kernel(idx, blocks, h.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, spmm_blockell_ref(idx, blocks,
+                                                      h.float()), **TOL)
+    epi = Epilogue(act="relu", has_bias=True, has_residual=True)
+    nbr = idx.shape[0]
+    got = spmm_blockell_epilogue_kernel(
+        idx[:, :0].contiguous(), blocks[:, :0].contiguous(), h, *tail,
+        epi=epi)
+    want = torch.relu(tail[0] + tail[1]).to(dtype)
+    assert got.shape == (nbr * 64, 48)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", NARROW)
+def test_narrow_operands_of_the_f32_kernels(dev, dtype):
+    """K2, K3, K4, K6, K7 and K8 keep f32 loads: bf16 and f16 operands
+    are promoted by their wrappers and the result cast back (K4's stays
+    f32), held to their plain versions on the same narrow operands."""
+    def cast(*ts):
+        return tuple(t.to(dtype) for t in ts)
+
+    sell = SellCS.from_dense(_sparse(11, 301, 277, 0.004), block=(64, 64),
+                             device=dev)
+    row_slot, row_nnz, cols, vals = sell_row_operands(sell)
+    h, bias = cast(torch.randn(277, 48, device=dev),
+                   torch.randn(48, device=dev))
+    res, = cast(torch.randn(sell.n_live_block_rows * 64, 48, device=dev))
+    ops = (row_slot, row_nnz, cols, vals.to(dtype), h)
+    heavy = dict(heavy_rows=sell.tile_heavy_rows)
+    got = spmm_sell_kernel(*ops, **heavy)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, spmm_sell_slots_ref(*ops), **NARROW_TOL)
+    epi = Epilogue(act="leaky_relu", negative_slope=0.2, has_bias=True,
+                   has_residual=True)
+    torch.testing.assert_close(
+        spmm_sell_epilogue_kernel(*ops, bias, res, epi=epi, **heavy),
+        spmm_sell_epilogue_slots_ref(*ops, bias, res, epi=epi),
+        **NARROW_TOL)
+    coo = BlockCOO.from_dense(_sparse(12, 301, 277, 0.05), 64, 64,
+                              device=dev)
+    b, c = cast(torch.randn(coo.shape[0], 17, device=dev),
+                torch.randn(17, coo.shape[1], device=dev))
+    ops = (coo.rows, coo.cols, coo.blocks.to(dtype), b, c)
+    got = sddmm_blockcoo_kernel(*ops)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, sddmm_blockcoo_ref(*ops), **NARROW_TOL)
+    ops = (*sddmm_sell_operands(sell), b[:301], c[:, :277].contiguous())
+    got = sddmm_sell_kernel(*ops)
+    assert got.dtype == torch.float32  # as the reference's tile route
+    torch.testing.assert_close(got, sddmm_sell_slots_ref(*ops), **TOL)
+    ell = BlockELL.from_dense(_sparse(13, 301, 277, 0.05), 64, 64,
+                              device=dev)
+    q, kt, v = cast(torch.randn(ell.shape[0], 2, device=dev),
+                    torch.randn(2, ell.shape[1], device=dev),
+                    torch.randn(ell.shape[1], 33, device=dev))
+    ops = (ell.indices, ell.blocks.to(dtype), q, kt, v)
+    got = fused_attn_blockell_kernel(*ops)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, fused_attn_blockell_ref(*ops),
+                               **NARROW_TOL)
+    n_pad = -(-277 // 64) * 64
+    ops = (sell.tile_rows, sell.tile_cols,
+           (sell_tile_blocks(sell) != 0).to(dtype),
+           q[: sell.n_live_block_rows * 64], kt[:, :n_pad].contiguous(),
+           v[:n_pad])
+    kw = dict(n_live_block_rows=sell.n_live_block_rows)
+    got = fused_attn_sell_kernel(*ops, **kw)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, fused_attn_sell_tiles_ref(*ops, **kw),
+                               **NARROW_TOL)
 
 
 @pytest.mark.parametrize("block", BLOCKS)

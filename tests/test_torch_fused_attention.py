@@ -7,27 +7,42 @@ mode (the online softmax) on the same numpy inputs, for all three edge
 activations.  The front-end is held to ``repro.sparse
 .fused_graph_attention`` on every path.  Tolerance: rtol 1e-4, atol 1e-5
 (the reference's fused-attention tolerance: exp and f32 sums in another
-order).  Edge-less rows must come out exactly 0.
+order).  Edge-less rows must come out exactly 0.  bf16 and f16 q, k and
+v (computed in f32, one rounding at the end): rtol = atol = 2e-2, the
+reference's bf16 tolerance, in the reference's default output dtype,
+``jnp.result_type(q, v)``, on every path.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_dtypes import (DTYPE_PAIRS, DTYPES, J_DTYPES,
+                           assert_narrow_close, to_jax, torch_dtype)
 
 from repro.core.formats import BlockELL as JBlockELL
 from repro.core.formats import SellCS as JSellCS
 from repro.kernels.fused.attention import \
     fused_attn_blockell_kernel as j_k7
+from repro.kernels.fused.attention import fused_attn_blockell as j_attn_ell
+from repro.kernels.fused.attention import fused_attn_sell as j_attn_sell
 from repro.kernels.fused.attention import fused_attn_sell_kernel as j_k8
 from repro.kernels.spmm.sell import sell_tile_blocks as j_tile_blocks
 from repro.sparse import SparseMatrix as JSparseMatrix
 from repro.sparse import fused_graph_attention as j_attention
-from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
-from repro_torch.kernels.fused.attention import (fused_attn_blockell_kernel,
+from repro_torch.kernels.fused.attention import (fused_attn_blockcoo_ref,
+                                                 fused_attn_blockell,
+                                                 fused_attn_blockell_kernel,
+                                                 fused_attn_blockell_ref,
+                                                 fused_attn_dense,
+                                                 fused_attn_elements,
                                                  fused_attn_sell,
                                                  fused_attn_sell_kernel,
-                                                 fused_attn_sell_slots_ref)
+                                                 fused_attn_sell_slots_ref,
+                                                 fused_attn_sell_tiles_ref)
 from repro_torch.kernels.spmm.sell import sell_tile_blocks
 from repro_torch.sparse.matrix import SparseMatrix
 from repro_torch.sparse.ops import fused_graph_attention
@@ -183,3 +198,89 @@ def test_one_dimensional_lanes_and_shape_checks():
         fused_graph_attention(mat, q, k, v[1:])
     with pytest.raises(ValueError, match="score widths"):
         fused_graph_attention(mat, q, k[:, :1], v)
+
+
+# ---------------------------------------------------------------------------
+# bf16 and f16 operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k7_k8_narrow_operands_match_pallas(dtype):
+    """K7 and K8 through their entry points against the reference's
+    (Pallas in interpret mode, its default output dtype)."""
+    a = _pattern(20, density=0.1)
+    q, k, v = (_t(x).to(dtype) for x in _qkv(20, 2, 16))
+    ell = BlockELL.from_dense(a, *BLOCK, device="cpu")
+    ell = dataclasses.replace(ell, blocks=ell.blocks.to(dtype))
+    jell = dataclasses.replace(JBlockELL.from_dense(a, *BLOCK),
+                               blocks=to_jax(ell.blocks))
+    want = j_attn_ell(jell, to_jax(q), to_jax(k.T), to_jax(v), interpret=True)
+    got = fused_attn_blockell(ell, q, k.T, v)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    want = j_attn_sell(JSellCS.from_dense(a, block=BLOCK), to_jax(q), to_jax(k.T),
+                       to_jax(v), interpret=True)
+    got = fused_attn_sell(sell, q, k.T, v)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+    assert not got[list(EMPTY_ROWS)].any()
+
+
+@pytest.mark.parametrize("q_dt,v_dt", DTYPE_PAIRS)
+def test_attention_output_dtypes_follow_the_reference(q_dt, v_dt):
+    """K7's and K8's wrappers and plain versions, and the Block-COO,
+    element and dense paths, return ``jnp.result_type(q, v)``
+    (``repro.kernels.fused.attention:183``)."""
+    a = _pattern(21, density=0.1)
+    q, k, v = _qkv(21, 2, 8)
+    want = torch_dtype(jnp.result_type(J_DTYPES[q_dt], J_DTYPES[v_dt]))
+    ell = BlockELL.from_dense(a, *BLOCK, device="cpu")
+    mp, np_ = ell.shape
+    qp, kt, vp = (_t(x) for x in (_pad(q, mp), _pad(k.T, 2, np_),
+                                  _pad(v, np_)))
+    qp, kt, vp = qp.to(q_dt), kt.to(q_dt), vp.to(v_dt)
+    blocks = ell.blocks.to(q_dt)
+    ops7 = (ell.indices, blocks, qp, kt, vp)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    bn = BLOCK[1]
+    q_perm = torch.cat([qp[:M], qp.new_zeros((1, 2))])[sell.perm]
+    ops8 = (sell.tile_rows, sell.tile_cols,
+            (sell_tile_blocks(sell) != 0).to(q_dt), q_perm,
+            kt[:, : -(-N // bn) * bn], vp[: -(-N // bn) * bn])
+    kw8 = dict(n_live_block_rows=sell.n_live_block_rows)
+    coo = BlockCOO.from_dense(a, *BLOCK, device="cpu")
+    rows, cols = (_t(x.astype(np.int32)) for x in np.nonzero(a))
+    vals = _t(a[np.nonzero(a)])
+    outs = {
+        "K7": fused_attn_blockell_kernel(*ops7),
+        "K7 plain": fused_attn_blockell_ref(*ops7),
+        "K8": fused_attn_sell_kernel(*ops8, **kw8),
+        "K8 plain": fused_attn_sell_tiles_ref(*ops8, **kw8),
+        "sell": fused_attn_sell(sell, qp[:M], kt[:, :N], vp[:N]),
+        "coo": fused_attn_blockcoo_ref(coo, qp, kt, vp),
+        "elements": fused_attn_elements(rows, cols, vals, qp[:M], kt[:, :N],
+                                        vp[:N], M),
+        "dense": fused_attn_dense(_t(a), qp[:M], kt[:, :N], vp[:N]),
+    }
+    assert {n: o.dtype for n, o in outs.items()} == dict.fromkeys(outs, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("path", ["ell", "sell", "csr", "dense"])
+def test_front_end_narrow_matches_reference(path, dtype):
+    """Every path of ``fused_graph_attention`` on bf16 / f16 q, k, v:
+    the reference's dtype and values."""
+    a = _pattern(22)
+    q, k, v = (_t(x).to(dtype) for x in _qkv(22, 2, 16))
+    formats = ("ell", "sell", "csr")
+    want = j_attention(JSparseMatrix.from_dense(a, formats=formats,
+                                                block=BLOCK),
+                       to_jax(q), to_jax(k), to_jax(v), policy=path)
+    got = fused_graph_attention(
+        SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                device="cpu"), q, k, v, policy=path)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+    assert not got[list(EMPTY_ROWS)].any()

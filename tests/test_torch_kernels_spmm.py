@@ -3,16 +3,24 @@
 On the CPU each wrapper runs its kernel's plain version; it is held to
 the JAX package's Pallas kernel run in interpret mode on the same numpy
 inputs.  Tolerance: rtol 1e-5, atol 1e-5 (f32 sums in another order).
+bf16 and f16 operands (sums in f32, one rounding at the end): rtol =
+atol = 2e-2, the reference's ``test_spmm_kernel_bf16``; their output
+dtype is the reference's default, ``jnp.result_type`` of the operands.
 The CUDA kernels themselves are held to the same plain versions on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
+import dataclasses
 import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_dtypes import (DTYPE_PAIRS, DTYPES, NARROW_TOL,
+                           assert_narrow_close, result_type, to_jax,
+                           torch_dtype)
 
+from repro.core.formats import BlockCOO as JBlockCOO
 from repro.core.formats import BlockELL as JBlockELL
 from repro.core.formats import SellCS as JSellCS
 from repro.kernels.fused.epilogue import Epilogue as JEpilogue
@@ -23,11 +31,14 @@ from repro.kernels.spmm.ops import spmm_blockell as j_spmm_blockell
 from repro.kernels.spmm.sell import sell_tile_blocks as j_tile_blocks
 from repro.kernels.spmm.sell import spmm_sell_blocked as j_spmm_sell
 from repro.kernels.spmm.sell import spmm_sell_tiles_ref as j_tiles_ref
+from repro.sparse.paths import spmm_coo as j_spmm_coo
+from repro.sparse.paths import spmm_elements as j_spmm_elements
 from repro_torch.configs.paper_gnn import SMOKE_CONFIG
-from repro_torch.core.formats import BlockELL, SellCS
+from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.data.pipeline import random_graph
 from repro_torch.kernels.fused.epilogue import Epilogue
 from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
+                                            spmm_blockell_epilogue_ref,
                                             spmm_blockell_fused,
                                             spmm_sell_epilogue_kernel,
                                             spmm_sell_epilogue_ref,
@@ -35,6 +46,7 @@ from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
                                             spmm_sell_fused)
 from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
 from repro_torch.kernels.spmm.ops import spmm_blockell
+from repro_torch.kernels.spmm.ref import spmm_blockell_ref
 from repro_torch.kernels.spmm.sell import (sell_row_operands, sell_row_ptr,
                                            sell_tile_blocks,
                                            spmm_sell_blocked,
@@ -43,7 +55,9 @@ from repro_torch.kernels.spmm.sell import (sell_row_operands, sell_row_ptr,
                                            spmm_sell_tiles_ref)
 from repro_torch.models.gnn import build_graph, init_gcn
 from repro_torch.serve.engine import GNNServingEngine
-from repro_torch.sparse.paths import pad_rows
+from repro_torch.sparse.matrix import SparseMatrix, values_of, with_values
+from repro_torch.sparse.ops import matmul
+from repro_torch.sparse.paths import pad_rows, spmm_coo, spmm_elements
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 M, N, BLOCK = 45, 40, (8, 8)  # ragged: M and N are not multiples of 8
@@ -334,3 +348,160 @@ def test_sell_path_needs_no_tile_view(monkeypatch):
     x = np.random.default_rng(0).standard_normal(
         (256, SMOKE_CONFIG.in_features)).astype(np.float32)
     assert bool(torch.isfinite(eng.infer(x)).all())
+
+
+# ---------------------------------------------------------------------------
+# bf16 and f16 operands (the reference takes any float dtype, sums in f32
+# and returns jnp.result_type of its operands by default)
+# ---------------------------------------------------------------------------
+
+
+def _j_ell(a, blocks, block):
+    jell = JBlockELL.from_dense(a, *block)
+    return dataclasses.replace(jell, blocks=to_jax(blocks))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_narrow_operands_match_pallas(dtype):
+    """The reference's ``tests/test_kernels_spmm.py::test_spmm_kernel_bf16``
+    in the port: bf16 (and f16, f32) blocks and H, the Pallas kernel in
+    interpret mode with its default output dtype."""
+    rng = np.random.default_rng(0)
+    dense = np.where(rng.random((128, 256)) < 0.2,
+                     rng.normal(size=(128, 256)), 0.0).astype(np.float32)
+    ell = BlockELL.from_dense(dense, 64, 128, device="cpu")
+    blocks = ell.blocks.to(dtype)
+    h = torch.from_numpy(rng.normal(size=(256, 128)).astype(
+        np.float32)).to(dtype)
+    want = j_spmm_blockell(_j_ell(dense, blocks, (64, 128)), to_jax(h),
+                           interpret=True)
+    got = spmm_blockell_kernel(ell.indices, blocks, h)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_narrow_operands_match_pallas(dtype):
+    a, h, bias, res = _inputs(10, 16)
+    jepi, epi = _epilogues("leaky_relu", True, True)
+    ell = BlockELL.from_dense(a, *BLOCK, device="cpu")
+    blocks = ell.blocks.to(dtype)
+    hp = pad_rows(torch.from_numpy(h), ell.shape[1]).to(dtype)
+    b, r = (torch.from_numpy(x).to(dtype) for x in (bias, res))
+    want = j_ell_fused(_j_ell(a, blocks, BLOCK), to_jax(hp), jepi, to_jax(b), to_jax(r),
+                       interpret=True)
+    got = spmm_blockell_fused(dataclasses.replace(ell, blocks=blocks), hp,
+                              epi, b, r)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+
+
+def _narrow_sell(a, dtype):
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    sell = dataclasses.replace(sell, slot_vals=sell.slot_vals.to(dtype))
+    jsell = JSellCS.from_dense(a, block=BLOCK)
+    return sell, dataclasses.replace(jsell, slot_vals=to_jax(sell.slot_vals))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2_k6_narrow_operands_match_pallas(dtype):
+    a, h, bias, res = _inputs(13, 16)
+    sell, jsell = _narrow_sell(a, dtype)
+    ht, b, r = (torch.from_numpy(x).to(dtype) for x in (h, bias, res))
+    want = j_spmm_sell(jsell, to_jax(ht), interpret=True)
+    got = spmm_sell_blocked(sell, ht)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+    jepi, epi = _epilogues("relu", True, True)
+    want = j_sell_fused(jsell, to_jax(ht), jepi, to_jax(b), to_jax(r), interpret=True)
+    got = spmm_sell_fused(sell, ht, epi, b, r)
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+
+
+@pytest.mark.parametrize("vals_dt,h_dt", DTYPE_PAIRS)
+def test_spmm_output_dtypes_follow_the_reference(vals_dt, h_dt):
+    """Every wrapper and plain version of K1, K2, K5 and K6 returns
+    ``jnp.result_type(values, H)``; the element and Block-COO paths return
+    what the reference's own functions return on the same operands."""
+    a, h, bias, res = _inputs(11, 8)
+    ell = BlockELL.from_dense(a, *BLOCK, device="cpu")
+    sell, _ = _narrow_sell(a, vals_dt)
+    blocks = ell.blocks.to(vals_dt)
+    hp = pad_rows(torch.from_numpy(h), ell.shape[1]).to(h_dt)
+    ht = torch.from_numpy(h).to(h_dt)
+    want = result_type(blocks, hp)
+    _, epi = _epilogues("relu", True, True)
+    b = torch.from_numpy(bias).to(h_dt)
+    r_ell = pad_rows(torch.from_numpy(res), ell.shape[0]).to(h_dt)
+    r_sell = torch.zeros((sell.n_live_block_rows * BLOCK[0], 8), dtype=h_dt)
+    ell_ops = (ell.indices, blocks, hp)
+    sell_ops = (*sell_row_operands(sell), ht)
+    tiles = (sell.tile_rows, sell.tile_cols, sell_tile_blocks(sell),
+             pad_rows(ht, -(-N // BLOCK[1]) * BLOCK[1]))
+    kw = dict(n_live_block_rows=sell.n_live_block_rows)
+    heavy = dict(heavy_rows=sell.tile_heavy_rows)
+    outs = {
+        "K1": spmm_blockell_kernel(*ell_ops),
+        "K1 plain": spmm_blockell_ref(*ell_ops),
+        "K5": spmm_blockell_epilogue_kernel(*ell_ops, b, r_ell, epi=epi),
+        "K5 plain": spmm_blockell_epilogue_ref(*ell_ops, b, r_ell, epi=epi),
+        "K2": spmm_sell_kernel(*sell_ops, **heavy),
+        "K2 plain": spmm_sell_slots_ref(*sell_ops),
+        "K2 tiles": spmm_sell_tiles_ref(*tiles, **kw),
+        "K6": spmm_sell_epilogue_kernel(*sell_ops, b, r_sell, epi=epi,
+                                        **heavy),
+        "K6 plain": spmm_sell_epilogue_slots_ref(*sell_ops, b, r_sell,
+                                                 epi=epi),
+        "K6 tiles": spmm_sell_epilogue_ref(*tiles, b, r_sell, epi=epi, **kw),
+        "spmm_blockell": spmm_blockell(dataclasses.replace(
+            ell, blocks=blocks), hp),
+        "spmm_sell_blocked": spmm_sell_blocked(sell, ht),
+        "spmm_sell_fused": spmm_sell_fused(sell, ht, epi, b,
+                                           torch.from_numpy(res).to(h_dt)),
+    }
+    assert {k: v.dtype for k, v in outs.items()} == dict.fromkeys(outs, want)
+    rows, cols = (torch.from_numpy(x.astype(np.int32)) for x in np.nonzero(a))
+    vals = torch.from_numpy(a[np.nonzero(a)]).to(vals_dt)
+    got = spmm_elements(rows, cols, vals, ht, M)
+    assert got.dtype == torch_dtype(j_spmm_elements(
+        jnp.asarray(rows.numpy()), jnp.asarray(cols.numpy()), to_jax(vals),
+        to_jax(ht), M).dtype)
+    coo = BlockCOO.from_dense(a, *BLOCK, device="cpu")
+    coo = dataclasses.replace(coo, blocks=coo.blocks.to(vals_dt))
+    jcoo = JBlockCOO.from_dense(a, *BLOCK)
+    jcoo = dataclasses.replace(jcoo, blocks=to_jax(coo.blocks))
+    assert spmm_coo(coo, hp).dtype == torch_dtype(
+        j_spmm_coo(jcoo, to_jax(hp)).dtype) == want
+
+
+def _narrow_matrix(a, dtype, formats):
+    mat = SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                  device="cpu")
+    return SparseMatrix(
+        {name: with_values(name, mat.form(name),
+                           values_of(name, mat.form(name)).to(dtype))
+         for name in formats}, mat.shape, mat.stats)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spmm_paths_agree_on_dtype(dtype):
+    """The element (csr), dense, Block-ELL, Block-COO and SELL paths of
+    ``matmul`` return the same dtype and values on the same operands,
+    with and without a fused epilogue."""
+    a, h, bias, res = _inputs(12, 16)
+    ht, b, r = (torch.from_numpy(x).to(dtype) for x in (h, bias, res))
+    want = {"plain": a @ h,
+            "fused": np.maximum(a @ h + bias + res, 0.0)}
+    mats = {"ell": _narrow_matrix(a, dtype, ("ell", "sell", "csr")),
+            "coo": _narrow_matrix(a, dtype, ("coo",))}
+    for path, mat in (("ell", mats["ell"]), ("sell", mats["ell"]),
+                      ("csr", mats["ell"]), ("dense", mats["ell"]),
+                      ("ell", mats["coo"])):
+        for kind, kw in (("plain", {}),
+                         ("fused", dict(epilogue="relu", bias=b,
+                                        residual=r))):
+            got = matmul(mat, ht, policy=path, **kw)
+            assert got.dtype == dtype, (path, mat.formats, kind)
+            np.testing.assert_allclose(got.float().numpy(), want[kind],
+                                       **NARROW_TOL)

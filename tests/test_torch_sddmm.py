@@ -9,36 +9,48 @@ version is held besides to the tile route it replaced (the tile-granular
 plain version gathered to slots).  The front-end
 ``repro_torch.sparse.ops.sddmm`` is held to ``repro.sparse.sddmm`` on
 the same matrices: the same plan and values within rtol 3e-4, atol 3e-4
-(the reference's own SDDMM tolerance).
+(the reference's own SDDMM tolerance).  bf16 and f16 operands (dots in
+f32, one rounding at the end): rtol = atol = 2e-2, the reference's bf16
+tolerance; K3 returns the reference's default ``jnp.result_type(mask,
+B)`` and K4 f32, as the reference's ``sample_sell_blocked`` does.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_dtypes import (DTYPE_PAIRS, DTYPES, J_DTYPES, NARROW_TOL,
+                           assert_narrow_close, to_jax, torch_dtype)
 
 from repro.configs.paper_gnn import SMOKE_CONFIG as J_SMOKE
 from repro.core.formats import BlockCOO as JBlockCOO
 from repro.core.formats import SellCS as JSellCS
 from repro.kernels.sddmm.kernel import sddmm_blockcoo_kernel as j_k3
+from repro.kernels.sddmm.ops import sddmm_blockcoo as j_sddmm_blockcoo
 from repro.kernels.sddmm.sell import sample_sell_blocked as j_sample_sell
 from repro.kernels.sddmm.sell import sddmm_sell_kernel as j_k4
 from repro.models.gnn import build_graph as j_build_graph
 from repro.models.gnn import graph_candidates as j_graph_candidates
 from repro.sparse import SparseMatrix as JSparseMatrix
 from repro.sparse import sddmm as j_sddmm
+from repro.sparse.paths import sddmm_element_dots as j_element_dots
 from repro_torch.configs.paper_gnn import SMOKE_CONFIG
 from repro_torch.core.formats import BlockCOO, SellCS
 from repro_torch.data.pipeline import random_graph
 from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
 from repro_torch.kernels.sddmm.kernel import sddmm_blockcoo_kernel
+from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
 from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
 from repro_torch.kernels.sddmm.sell import (sample_sell_blocked,
                                             sddmm_sell_kernel,
                                             sddmm_sell_operands,
+                                            sddmm_sell_slots_ref,
                                             sddmm_sell_tiles_ref)
 from repro_torch.models.gnn import build_graph, graph_candidates
-from repro_torch.sparse import ops
-from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse import autodiff, ops
+from repro_torch.sparse.matrix import SparseMatrix, values_of, with_values
+from repro_torch.sparse.paths import sddmm_element_dots
 
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -279,3 +291,101 @@ def test_front_end_rejects_bad_operands():
         ops.sddmm(mat, torch.ones(M, 2), torch.ones(3, N))
     with pytest.raises(TypeError):
         ops.sddmm(mat, np.ones((M, 2)), torch.ones(2, N))
+
+
+# ---------------------------------------------------------------------------
+# bf16 and f16 operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_k4_narrow_operands_match_pallas(dtype):
+    """K3 against ``repro.kernels.sddmm.ops.sddmm_blockcoo`` (Pallas in
+    interpret mode, its default output dtype) and K4's entry point
+    against ``sample_sell_blocked`` (interpret mode; f32 out there), on
+    bf16 / f16 / f32 masks and factors."""
+    a = _weighted(40)
+    rng = np.random.default_rng(40)
+    coo = BlockCOO.from_dense(a, *BLOCK, pad_to=40, device="cpu")
+    coo = dataclasses.replace(coo, blocks=coo.blocks.to(dtype))
+    jcoo = JBlockCOO.from_dense(a, *BLOCK, pad_to=40)
+    jcoo = dataclasses.replace(jcoo, blocks=to_jax(coo.blocks))
+    b = _t(rng.normal(size=(coo.shape[0], 2)).astype(np.float32)).to(dtype)
+    c = _t(rng.normal(size=(2, coo.shape[1])).astype(np.float32)).to(dtype)
+    want = j_sddmm_blockcoo(jcoo, to_jax(b), to_jax(c), interpret=True).blocks
+    got = sddmm_blockcoo(coo, b, c).blocks
+    assert got.dtype == dtype == torch_dtype(want.dtype)
+    assert_narrow_close(got, want)
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    b, c = b[:M].contiguous(), c[:, :N].contiguous()
+    want = j_sample_sell(JSellCS.from_dense(a, block=BLOCK), to_jax(b), to_jax(c),
+                         interpret=True)
+    got = sample_sell_blocked(sell, b, c)
+    assert got.dtype == torch_dtype(want.dtype) == torch.float32
+    assert_narrow_close(got, want)
+
+
+@pytest.mark.parametrize("mask_dt,b_dt", DTYPE_PAIRS)
+def test_sddmm_output_dtypes_follow_the_reference(mask_dt, b_dt):
+    """K3's wrapper and plain version, and K4's tile plain version, return
+    ``jnp.result_type(mask, B)`` (``repro.kernels.sddmm.ops:30``); K4's
+    wrapper and plain version and the SELL entry point f32, which the
+    reference's ``sample_sell_blocked`` asks of its kernel; the element
+    dots the reference's dtype."""
+    a = _weighted(41, density=0.08)
+    rng = np.random.default_rng(41)
+    coo = BlockCOO.from_dense(a, *BLOCK, device="cpu")
+    mask = coo.blocks.to(mask_dt)
+    b = _t(rng.normal(size=(coo.shape[0], 3)).astype(np.float32)).to(b_dt)
+    c = _t(rng.normal(size=(3, coo.shape[1])).astype(np.float32)).to(b_dt)
+    ops3 = (coo.rows, coo.cols, mask, b, c)
+    want3 = torch_dtype(jnp.result_type(J_DTYPES[mask_dt], J_DTYPES[b_dt]))
+    assert sddmm_blockcoo_kernel(*ops3).dtype == want3
+    assert sddmm_blockcoo_ref(*ops3).dtype == want3
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    c_mixed = c.to(mask_dt)
+    bm, bn = BLOCK
+    for cc in (c, c_mixed):
+        ops4 = (*sddmm_sell_operands(sell), b[:M], cc[:, :N])
+        assert sddmm_sell_kernel(*ops4).dtype == torch.float32
+        assert sddmm_sell_slots_ref(*ops4).dtype == torch.float32
+        assert sample_sell_blocked(sell, b[:M], cc[:, :N]).dtype \
+            == torch.float32
+    tmask = (sell.tile_slot_map < sell.n_slots).to(mask_dt)
+    b_perm = b[: sell.n_live_block_rows * bm]
+    assert sddmm_sell_tiles_ref(sell.tile_rows, sell.tile_cols, tmask,
+                                b_perm, c).dtype == want3
+    rows, cols = (_t(x.astype(np.int32)) for x in np.nonzero(a))
+    assert sddmm_element_dots(rows, cols, b, c).dtype == torch_dtype(
+        j_element_dots(jnp.asarray(rows.numpy()), jnp.asarray(cols.numpy()),
+                       to_jax(b), to_jax(c)).dtype)
+
+
+def _narrow_matrix(a, dtype, formats):
+    mat = SparseMatrix.from_dense(a, formats=formats, block=BLOCK,
+                                  device="cpu")
+    return SparseMatrix(
+        {name: with_values(name, mat.form(name),
+                           values_of(name, mat.form(name)).to(dtype))
+         for name in formats}, mat.shape, mat.stats)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sddmm_paths_agree_on_dtype(dtype):
+    """The raw dots of every path (csr: element dots, ell: K3 over the
+    all-ones blocks, sell: K4's f32 dots cast once by ``sample_exec``,
+    dense) and the SDDMM values come out in one dtype on the same
+    operands, with the same values."""
+    a = _weighted(42, density=0.1)
+    rng = np.random.default_rng(42)
+    b = _t(rng.normal(size=(M, 2)).astype(np.float32)).to(dtype)
+    c = _t(rng.normal(size=(2, N)).astype(np.float32)).to(dtype)
+    mat = _narrow_matrix(a, dtype, ("ell", "sell", "csr"))
+    for path in ("ell", "sell", "csr", "dense"):
+        raw = autodiff.sample_exec(path, mat, b, c)
+        assert raw.dtype == dtype, path
+        got = ops.sddmm(mat, b, c, policy=path)
+        assert got.data.dtype == dtype, path
+        np.testing.assert_allclose(got.densify().float().numpy(),
+                                   a * (b.float() @ c.float()).numpy(),
+                                   **NARROW_TOL)
