@@ -8,7 +8,7 @@ Phases, each of which must pass or the script exits non-zero:
   1. Device and build: the card's name and power limit, torch and CUDA
      versions, and the build of every CUDA kernel from ``csrc/``, with
      ptxas's usage; every instance that spills is printed, and no K1/K5
-     instance (``spmm_blockell``) nor bf16 K9 instance may spill.
+     instance (``spmm_blockell``) nor K9 instance may spill.
   2. Kernels against their plain PyTorch versions on the card, at ragged
      small shapes (m not a multiple of bm): K1/K2/K5/K6 at D = 16 and 48
      with bias and residual (K2/K6 on their slot operands, held besides
@@ -16,7 +16,8 @@ Phases, each of which must pass or the script exits non-zero:
      streaming kernel besides at block fills 0, 1 %, 10 % and 100 %, an
      all-padding block-row, D = 16, 48, 128 and 130, in f32, bf16 and f16,
      launched twice for equal bits; K3/K4 at
-     K = 2 and 48 (K3 with a weighted mask; K4 on its slot operands, held
+     K = 2 and 48 (K3 with a weighted mask, with none and on bf16
+     operands; K4 on its slot operands, held
      besides, exactly, to the tile kernel gathered to slots, with padding
      and edge-less rows' slots exactly 0); K7/K8 at dk = 2 and 48,
      D = 16 and 48, with edge-less rows
@@ -34,8 +35,9 @@ Phases, each of which must pass or the script exits non-zero:
      Per graph and path, each kernel at the serving shapes against its
      plain version, timed beside it, beside one PyTorch call computing
      the same function where there is one (``torch.sparse.mm`` for the
-     SpMM kernels, ``torch.sparse.sampled_addmm`` for the SDDMM ones;
-     printed here, never called by the port) and beside its bound from
+     SpMM kernels, ``torch.sparse.sampled_addmm`` for K4 and for K3
+     without a mask; printed here, never called by the port) and beside
+     its bound from
      bytes and the FP32 operations its nonzeros need (K1/K5: the blocks
      once, with the bytes its design moves printed beside, counted from
      the shapes, not read from a counter; K2/K6: the two row
@@ -50,10 +52,15 @@ Phases, each of which must pass or the script exits non-zero:
             neither ``sell_tile_blocks`` nor ``sell_row_ptr``;
        SDDMM: one ``repro_torch.sparse.ops.sddmm`` call at K = 2, its
             plan and values held to a dense f32 oracle of A ⊙ (B C), its
-            peak memory beyond the inputs printed (on (b) at most
-            ``SDDMM_SELL_EXTRA_BYTES``: no tile mask or tile output; K4
-            also equals the tile kernel there, and ``sample_sell_blocked``
-            samples the same without the packing's tile view);
+            peak memory beyond the inputs printed (on (a) at most its
+            output tiles plus ``SDDMM_ELL_SLACK_BYTES``: no mask array;
+            on (b) at most ``SDDMM_SELL_EXTRA_BYTES``: no tile mask or
+            tile output; K4 also equals the tile kernel there, and
+            ``sample_sell_blocked`` samples the same without the
+            packing's tile view).  Before it, on (a), K3 is timed as
+            ``sample_exec`` launches it (no mask, against
+            ``sampled_addmm``) and as the entry point launches it (A's
+            values as the mask: the kernel row);
        GAT: 8 requests through ``GNNServingEngine(model="gat")``, logits
             held to a dense f32 masked-softmax oracle, and one request
             with ``fuse=False`` (no kernel: it samples on the csr
@@ -69,15 +76,20 @@ Phases, each of which must pass or the script exits non-zero:
             independent oracle);
        (ii) S = 8192, window 0 (full causal): held to the plain version
             and to the port's ``flash_attention`` in f32;
-     each in bf16 and then in f32.  Every output row is held to its own
-     norm; f32 besides to 1e-4 x max|want|, and bf16 element by element
-     to the plain version (rtol 1e-2, atol 2e-3).
-     Each timed beside its bound (the live query-key pairs at the
-     dtype's peak), the plain version and
+     each in bf16 and then in f32; and
+       (iii) S = 32768, window 0 (a global layer's mask at the same
+            length), f32 only: the longest rows, the last q block of
+            every head (32257 to 32768 keys each), held to an f64 oracle.
+     Every output row is held to its own norm; f32 besides to
+     1e-4 x max|want|, and bf16 element by element to the plain version
+     (rtol 1e-2, atol 2e-3).
+     Each timed beside its bound (the live query-key pairs at the bf16
+     tensor-core peak; in f32 three TF32 products per product at the TF32
+     peak, with the FFMA bound printed beside), the plain version and
      ``scaled_dot_product_attention`` in the same dtype (the dense ELL
      mask at (i), ``is_causal`` at (ii); printed here, never called by the
-     port); in bf16 with its TFLOP/s, its share of the bound and its ratio
-     to SDPA.
+     port), with its TFLOP/s, its share of the bound and its ratio to
+     SDPA.
   5. A JSON line of the kernels, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
@@ -97,11 +109,13 @@ import time
 import warnings
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and FP32 FLOP/s
-# outside the tensor cores.  Bounds are stated against these, at 700 W.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s outside
+# the tensor cores, bf16 and TF32 on them.  Bounds are stated against
+# these, at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
+PEAK_TF32_FLOP_PER_S = 495e12  # tensor cores, dense
 # logits (and SDDMM values) vs the dense oracle, relative to their own
 # scale: |got - want| <= ORACLE_RTOL * max|want| + ORACLE_ATOL (f32 sums
 # over up to 16384 terms, and for GAT the softmax's exp, taken in
@@ -115,6 +129,10 @@ TILE_PATH_TOL = dict(rtol=0.0, atol=0.0)
 # the (b) SDDMM call may allocate this much beyond its inputs: its output
 # and K4's slot vector, a few MB (a tile mask alone would be ≈ 1 GB)
 SDDMM_SELL_EXTRA_BYTES = 64 * 2**20
+# the (a) SDDMM call may allocate its output tiles (1 GiB) and this much
+# more: the padded B and C and the Block-COO row ids, a few MB (a mask or a
+# second tile array would be another 1 GiB)
+SDDMM_ELL_SLACK_BYTES = 64 * 2**20
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # K9 in bf16 vs its plain version
 # K1/K5 in bf16 / f16 vs their plain versions: both sum in f32 and round
 # once, so they differ by at most one ulp of the output (2^-7 relative in
@@ -138,6 +156,7 @@ SEED = 0
 N_NODES = 16384
 S_LOCAL = 32768   # phase 4 (i): the prefill_32k length, local-layer window
 S_GLOBAL = 8192   # phase 4 (ii): the global-layer mask (full causal)
+S_LONG = 32768    # phase 4 (iii): the global-layer mask at S_LOCAL's length
 DEVICE = "cuda"
 # ≈ 0.5 ms of the card's clock cycles (about 1 GHz or more under load):
 # longer than a wrapper's host work, so a timed call's launches queue
@@ -453,13 +472,24 @@ def ragged_checks_sddmm_attention(torch, np, port):
     sell = port.SellCS.from_dense(a_sell, block=(bm, bm), device=dev)
     live = sell.n_live_block_rows
     pattern = (port.sell.sell_tile_blocks(sell) != 0).float()
+    k3, k3_plain = port.wrappers["K3"], port.sddmm_ref.sddmm_blockcoo_ref
     for k in (2, 48):
         ops = (coo.rows, coo.cols, coo.blocks,
                torch.randn(n_pad, k, device=dev),
                torch.randn(k, n_pad, device=dev))
-        errs = {"K3": check_close(torch, f"K3 ragged k={k}",
-                                  port.wrappers["K3"](*ops),
-                                  port.sddmm_ref.sddmm_blockcoo_ref(*ops))}
+        errs = {"K3": check_close(torch, f"K3 ragged k={k}", k3(*ops),
+                                  k3_plain(*ops))}
+        # K3 with no mask (every cell sampled), and on bf16 operands, which
+        # it reads natively (both round each dot once to bf16)
+        bare = (*ops[:2], None, *ops[3:])
+        kw = dict(block=(bm, bm), out_dtype=torch.float32)
+        errs["K3 no mask"] = check_close(torch, f"K3 no mask k={k}",
+                                         k3(*bare, **kw),
+                                         k3_plain(*bare, **kw))
+        b16 = (*ops[:2], *(t.bfloat16() for t in ops[2:]))
+        errs["K3 bf16"] = check_close(torch, f"K3 bf16 k={k}",
+                                      k3(*b16).float(),
+                                      k3_plain(*b16).float(), NARROW_TOL)
         # K4 on its slot operands: held to its plain version and, exactly,
         # to the tile route it replaced
         b, c = torch.randn(m, k, device=dev), torch.randn(k, m, device=dev)
@@ -474,8 +504,9 @@ def ragged_checks_sddmm_attention(torch, np, port):
         log(f"ragged m={m} k={k} (COO blocks {coo.nnzb}, SELL tiles "
             f"{sell.n_tiles}): max_abs_err "
             + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-            + " (K4 also equal to the tile kernel gathered to slots; "
-            "padding and edge-less rows' slots exactly 0)")
+            + " (K3 weighted, without a mask and on bf16 operands; K4 also "
+            "equal to the tile kernel gathered to slots; padding and "
+            "edge-less rows' slots exactly 0)")
     att = port.attention
     for dk in (2, 48):
         for d in (16, 48):
@@ -895,35 +926,54 @@ def sddmm_phase(torch, port, graph, a_dense, label, want_path):
     b = torch.randn(n, k, device=dev, generator=gen)
     c = torch.randn(k, n, device=dev, generator=gen)
     paths = port.paths
-    # the kernel at the operands the path hands it (autodiff.sample_exec)
+    a_lib = library_csr(torch, graph)
+    sampled = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+        a_lib, b, c, beta=0.0)
+    # the kernel at the operands the path hands it (autodiff.sample_exec,
+    # autodiff.sddmm_values)
     if want_path == "ell":
         name, plain = "K3", port.sddmm_ref.sddmm_blockcoo_ref
         coo = paths.ell_to_coo(graph.adj.form("ell"))
-        args = (coo.rows, coo.cols, torch.ones_like(coo.blocks),
-                paths.pad_rows(b, coo.shape[0]),
-                paths.pad_cols(c, coo.shape[1]).contiguous())
-        what = f"nnzb={coo.nnzb} all-ones blocks {coo.bm}x{coo.bn} K={k}"
-        nnz = int((args[2] != 0).sum())
-        nbytes = nbytes_of(*args) + args[2].numel() * 4  # the output tiles
-        flops = 2 * k * nnz + nnz  # and the mask's multiply
+        bp = paths.pad_rows(b, coo.shape[0])
+        cp = paths.pad_cols(c, coo.shape[1]).contiguous()
+        nnz = coo.nnzb * coo.bm * coo.bn  # every cell of every tile
+        tile_bytes = nnz * 4  # the f32 output tiles
+        nbytes = nbytes_of(coo.rows, coo.cols, bp, cp) + tile_bytes
+        # the launch sample_exec makes (no mask, every cell sampled), on
+        # a line of its own beside sampled_addmm, the same function
+        bare = (coo.rows, coo.cols, None, bp, cp)
+        kw = dict(block=(coo.bm, coo.bn), out_dtype=torch.float32)
+        measure(torch, "K3 no mask (sample_exec's launch)",
+                lambda: port.wrappers[name](*bare, **kw),
+                lambda: plain(*bare, **kw), sampled, nbytes, 2 * k * nnz,
+                f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} K={k}; {nnz} "
+                "sampled entries; library: sampled_addmm")
+        del bare
+        # the kernel row: the launch the entry point makes, A's values as
+        # the mask, read once (8 bytes an element); no single PyTorch call
+        # computes the weighted product
+        args = (coo.rows, coo.cols, coo.blocks, bp, cp)
+        row = measure(torch, name, lambda: port.wrappers[name](*args),
+                      lambda: plain(*args), None,
+                      nbytes + nbytes_of(coo.blocks), 2 * k * nnz + nnz,
+                      f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} K={k}; "
+                      f"{nnz} sampled entries; A's values read as the mask "
+                      "(the sddmm entry point's launch)")
     else:
         name, plain = "K4", port.sddmm_sell.sddmm_sell_slots_ref
         sell = graph.adj.form("sell")
         args = (*port.sddmm_sell.sddmm_sell_operands(sell), b, c)
         row_slot, row_nnz, perm, slot_cols = args[:4]
         nnz = int(row_nnz.sum())
-        what = (f"rows={row_slot.shape[0]} slots={sell.n_slots} "
-                f"nonzeros={nnz} K={k}")
         # what K4 reads and writes: the row arrays, each nonzero's column,
         # B, C and the slot output (padding slots are never read)
         nbytes = nbytes_of(row_slot, row_nnz, perm, b, c) \
             + nnz * slot_cols.element_size() + sell.n_slots * 4
-        flops = 2 * k * nnz
-    a_lib = library_csr(torch, graph)
-    row = measure(
-        torch, name, lambda: port.wrappers[name](*args), lambda: plain(*args),
-        lambda: torch.sparse.sampled_addmm(a_lib, b, c, beta=0.0), nbytes,
-        flops, f"{what}; sampled entries {nnz}")
+        row = measure(
+            torch, name, lambda: port.wrappers[name](*args),
+            lambda: plain(*args), sampled, nbytes, 2 * k * nnz,
+            f"rows={row_slot.shape[0]} slots={sell.n_slots} nonzeros={nnz} "
+            f"K={k}; sampled entries {nnz}; library: sampled_addmm")
     if want_path == "sell":
         got = port.wrappers[name](*args)
         err = check_close(torch, "K4 vs the tile kernel", got,
@@ -963,6 +1013,11 @@ def sddmm_phase(torch, port, graph, a_dense, label, want_path):
         raise AssertionError(f"graph ({label}) SDDMM allocated "
                              f"{extra / 2**20:.1f} MiB: a tile mask or tile "
                              "output was built")
+    if want_path == "ell" and extra > tile_bytes + SDDMM_ELL_SLACK_BYTES:
+        raise AssertionError(f"graph ({label}) SDDMM allocated "
+                             f"{extra / 2**20:.1f} MiB beyond the "
+                             f"{tile_bytes / 2**20:.0f} MiB of its output "
+                             "tiles: a mask or a second tile array was built")
     worst, tol, top = hold_to_oracle(
         torch, label, [s.densify()], lambda _: a_dense * (b @ c), (n, n))
     del s
@@ -1205,6 +1260,49 @@ def time_sdpa(torch, q, k, v, sdpa_kw, out, backends):
     return None, "not timed (no fused SDPA backend took these inputs)"
 
 
+def long_rows(torch, np, port, rng):
+    """Phase 4 (iii): K9 f32 on S_LONG keys under the full causal mask;
+    the last q block of every head (the rows that sum the most keys) held
+    row by row to an f64 oracle."""
+    dev = torch.device(DEVICE)
+    cfg = port.lm_cfg
+    h, hkv, d, blk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.attn_block
+    s = S_LONG
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (n, s, d), dtype=np.float32)).to(dev) for n in (h, hkv, hkv))
+    ell, val = (torch.from_numpy(a).to(dev)
+                for a in port.bsattn.banded_ell(s, blk, blk, 0))
+    torch.cuda.synchronize()
+    port.reset_counts()
+    out = port.bsattn.block_sparse_flash_attention(
+        q, k, v, window=0, block_q=blk, block_kv=blk)
+    torch.cuda.synchronize()
+    counts = port.counts()
+    if counts != expected(port, {"K9": 1}, 1):
+        raise AssertionError(f"bsattn (iii): launch counts {counts}, "
+                             "expected K9 x1")
+    r0 = s - blk
+    keep = torch.arange(s, device=dev)[None, :] \
+        <= torch.arange(r0, s, device=dev)[:, None]
+    want = torch.empty((h, blk, d), dtype=torch.float64, device=dev)
+    for i in range(h):
+        j = i // (h // hkv)
+        sc = (q[i, r0:].double() @ k[j].double().T) / math.sqrt(d)
+        sc = sc.masked_fill(~keep, -math.inf)
+        want[i] = torch.softmax(sc, dim=-1) @ v[j].double()
+    hold_attention(torch, f"(iii) S={s} window=0 float32, rows {r0}..{s - 1} "
+                   "of every head vs an f64 oracle", out[:, r0:], want,
+                   "float32", same_rounding=False)
+    ms = time_ms(torch, lambda: port.wrappers["K9"](
+        ell, val, q, k, v, block_q=blk, block_kv=blk, causal=True,
+        window=0))
+    log(f"K9 [(iii) S={s} window=0 H={h} Hkv={hkv} D={d} float32]: kernel "
+        f"{ms:.4f} ms, launches {counts}")
+    del q, k, v, out, want
+    torch.cuda.empty_cache()
+
+
 def bsattn_phase(torch, np, port):
     """Phase 4: block-sparse attention at gemma3-4b width through the
     entry point; returns K9's row at (i) in bf16, with launches."""
@@ -1280,9 +1378,13 @@ def bsattn_phase(torch, np, port):
                                                fused_sdpa)
             nbytes = (2 * h + 2 * hkv) * s * d * q.element_size() \
                 + 2 * ell.numel() * 4
-            peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-                else PEAK_FP32_FLOP_PER_S
-            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
+            # bf16: one tensor-core product per product; f32: three TF32
+            # ones (hi hi, hi lo, lo hi), the least f32-accurate work on
+            # the tensor cores
+            peak, work = (PEAK_BF16_FLOP_PER_S, flops) \
+                if dtype == torch.bfloat16 else (PEAK_TF32_FLOP_PER_S,
+                                                 3 * flops)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, work, peak)
             entry = time_ms(torch, lambda: port.bsattn
                             .block_sparse_flash_attention(
                                 q, k, v, window=window, block_q=blk,
@@ -1291,21 +1393,23 @@ def bsattn_phase(torch, np, port):
                 f"point {entry:.4f} ms | plain {row['plain_ms']:.4f} ms | "
                 f"SDPA {lib} | bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}: {nbytes / 1e9:.3f} GB, "
-                f"{flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s; "
+                f"{work / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s; "
                 f"{flops / PEAK_FP32_FLOP_PER_S * 1e3:.3f} ms at the FP32 "
                 f"FFMA peak; kernel at "
                 f"{flops / row['ms'] / 1e9:.2f} TFLOP/s)")
-            if dtype == torch.bfloat16:
-                log(f"  K9 ({label}) bf16 on the tensor cores: "
-                    f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
-                    f"{100 * row['bound_ms'] / row['ms']:.1f} % of its bound, "
-                    f"{row['ms'] / row['library_ms']:.2f}x SDPA's time")
+            how = "bf16" if dtype == torch.bfloat16 else "f32 (3xTF32)"
+            log(f"  K9 ({label}) {how} on the tensor cores: "
+                f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * row['bound_ms'] / row['ms']:.1f} % of its bound, "
+                + ("" if row["library_ms"] is None else
+                   f"{row['ms'] / row['library_ms']:.2f}x SDPA's time"))
             if label == "i" and dtype == torch.bfloat16:
                 row["launches"] = counts["K9"]
                 k9_row = row
             del q, k, v, out
         del x32, sdpa_kw
         torch.cuda.empty_cache()
+    long_rows(torch, np, port, rng)
     log(f"bsattn peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"K9": k9_row}
@@ -1347,10 +1451,10 @@ def main() -> int:
                         if "Used" in line or "spill" in line})
         log(f"  {name} (ptxas, distinct over its instances): "
             + " | ".join(usage))
-    # K9 by instance; the bf16 ones must not spill
+    # K9 by instance; none may spill
     for inst, lines in sorted(port.ptxas_usage(logs["bsattn"]).items()):
         log(f"  K9 {inst}: " + "; ".join(lines))
-        if inst.startswith("bf16") and port.spill_bytes(lines):
+        if port.spill_bytes(lines):
             raise AssertionError(f"K9 {inst} spills: {lines}")
     spills = []
     for name, text in logs.items():  # every instance that spills

@@ -21,25 +21,28 @@
 // What bounds it on an H100: operations.  At gemma3-4b's local layers
 // (S = 32768, window 1024, D = 256, 8 q heads) the live pairs need
 // 2.7e11 FLOP against 0.4 GB of bf16 inputs and output: 0.27 ms at the
-// bf16 tensor-core peak, 4.0 ms at the f32 FFMA peak, 0.12 ms of bytes.
+// bf16 tensor-core peak, 0.12 ms of bytes.  In f32 the least work at f32
+// accuracy is three TF32 tensor-core products per product (below): 8.1e11
+// FLOP, 1.64 ms at the dense TF32 peak (4.0 ms at the f32 FFMA peak).
 //
-// Two designs, chosen by dtype, share the work split and the skips:
+// Two designs, chosen by dtype (bf16: tc, f32: tf32), share the work
+// split and the skips:
 //   * the Pallas grid (bh, q block, slot) carried m, l and acc in VMEM
 //     across sequential slot steps; CTAs run in no order here, so one CTA
-//     owns one (bh, 64-row q tile) and loops over its block-row's slots
-//     and over each slot's keys in chunks itself: the statistics never
-//     leave the CTA and no sum crosses CTAs;
+//     owns one (bh, q tile of 16 rows a warp) and loops over its
+//     block-row's slots and over each slot's keys in chunks itself: the
+//     statistics never leave the CTA and no sum crosses CTAs;
 //   * an invalid slot is skipped, and so is a key chunk that causality or
 //     the window masks for every row of the tile.  Both skips are exact:
 //     such a chunk leaves m unchanged, so alpha = 1, and adds p = 0;
 //   * the block-rows of the last q blocks carry the most slots under a
 //     causal mask, so the grid is walked from the last q block down, and
 //     the longest CTAs start first;
-//   * the tile of 64 rows and the key chunk need not divide block_q /
-//     block_kv: rows past the block-row and keys past the slot are masked.
+//   * the q tile and the key chunk need not divide block_q / block_kv:
+//     rows past the block-row and keys past the slot are masked.
 //
-// bf16 (namespace tc): the products run on the tensor cores, so the bound
-// above is the one that applies.  Each of 4 warps owns 16 q rows;
+// bf16 (namespace tc): the products run on the tensor cores at the bf16
+// bound above.  Each of 4 warps owns 16 q rows;
 // S = Q K^T and O += P V are mma.sync m16n8k16 bf16 x bf16 -> f32 (a bf16
 // product is exact in f32, so only the order of the sums differs from the
 // plain version), with operand fragments read by ldmatrix (ldmatrix.trans
@@ -61,14 +64,55 @@
 // Head dims that are not a multiple of 8, or unaligned rows, are loaded
 // synchronously instead of by cp.async; columns past d are zero.
 //
-// f32 (namespace ffma): every product is an f32 FFMA (no tensor cores: the
-// port keeps f32 out of TF32).  Each warp owns 8 q rows and each lane one
-// key of a 32-key chunk, so the row max and sum are warp shuffles and m, l
-// stay in registers; the lane then owns D/32 output columns of the same 8
-// rows, and reads its warp's p from a private 8 x 32 tile in shared
-// memory.  The q tile (64 x D), the K chunk (32 x D, rows padded by 4
-// floats so the lanes' float4 reads fall on distinct banks) and the V
-// chunk (32 x D) live in dynamic shared memory: 141 KB at D = 256.
+// f32 (namespace tf32): the same skeleton on the tensor cores with
+// error-compensated TF32.  Each f32 operand x is split, where its fragment
+// is read, into hi = x rounded to TF32 and lo = x - hi (exact in f32)
+// rounded to TF32, and each product a b is summed as lo(a) hi(b) +
+// hi(a) lo(b) + hi(a) hi(b): three mma.sync m16n8k8 TF32 -> f32, small
+// terms first; the lo lo term and the two roundings leave about 2^-21 of
+// the product, near f32's 2^-24 (TF32 alone: 2^-11).  No result is
+// rounded to TF32: m, l and O are f32, and p is split like any operand.
+// The tensor cores add f32 with truncation, so O is not summed there
+// across chunks: each chunk's P V is summed from 0 (32 keys) and folded
+// into O with one fmaf an element, O = alpha O + P V, which keeps a long
+// row's error from growing with its keys.  What bounds
+// it is the three products' tensor-core work (1.64 ms above) and, close
+// behind, the splits, which every warp does for every fragment it reads.
+// How the design answers:
+//   * the split rounds with integer adds and masks on the ALU, not with
+//     cvt.rna, which the conversion unit issues at a fraction of the ALU's
+//     rate (the probe times a copy that uses cvt.rna);
+//   * fragments are permuted so each is one float4 read.  An m16n8k8
+//     product sums over 8 indices k, and which data column each k names is
+//     free if both operands agree: for Q K^T a thread takes d columns
+//     4t..4t+3 of each 16-column step (k = t, t + 4 of two products) from
+//     one float4 of its Q rows and one of its K key; for P V, keys 2t, 2t+1
+//     of each 8-key n-tile are k = t, t + 4, which is where the S
+//     accumulator already holds p (no shuffle), and output columns 4g + i
+//     of each 32-column group are n = g of n-tile i, so one float4 of V per
+//     key feeds four products and a thread stores float4s;
+//   * shared memory: f32 tiles are twice bf16's.  A chunk's K and V land
+//     apart in one tile each: the next chunk's K loads while this chunk's
+//     P V is multiplied, its V while its own Q K^T is.  Rows are padded so
+//     every fragment read is free of bank conflicts (strides 16 mod 32
+//     floats for Q / K, 4 mod 16 for V);
+//   * registers: a warp that owns 16 rows and all of D holds O in D / 2
+//     floats a thread, and the fold needs a chunk's P V and its split P
+//     beside it.  Up to D = 128 that fits (4 warps, 64-row tiles).  At
+//     D = 256 it would not (128 floats of O alone), so two warps share
+//     each 16 rows and own 128 columns each: each sums Q K^T over its 128
+//     d columns, the two add their halves through shared memory (the
+//     same two addends in both, so both see the same scores, m and l),
+//     and each multiplies P by its half of V.  That is 8 warps, 64 q
+//     rows, 32-key K and V tiles and the partial scores: 154 KB, one CTA
+//     an SM.  The loops are unrolled, so each warp keeps several loads and
+//     products in flight.
+// Head dims that are not a multiple of 4, or unaligned rows, are loaded
+// without cp.async.
+//
+// The earlier f32 design (every product an FFMA on the CUDA cores, 4.0 ms
+// bound above) is bsattn_ffma.cuh, built only into a copy of this file by
+// python -m repro_torch.kernels.bsattn.tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -79,253 +123,56 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kTiny = 1e-30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-namespace ffma {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kTileQ = kWarps * kRowsPerWarp;  // 64 q rows per CTA
-constexpr int kChunk = 32;                     // keys per chunk: one a lane
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-
-// p as V's dtype holds it before p @ V
-__device__ __forceinline__ float as_input(float p, const float*) { return p; }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// bytes is 0 (nothing is read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// DT: the head dim rounded up to 64, 128 or 256 (columns >= d are zero in
-// shared memory and never stored).  Each lane owns CPL = DT / 32 output
-// columns as NV runs of VW adjacent ones, run j at j*32*VW + lane*VW.
-template <int DT>
-struct Cols {
-  static constexpr int CPL = DT / 32;
-  static constexpr int VW = CPL < 4 ? CPL : 4;
-  static constexpr int NV = CPL / VW;
-  static constexpr int LDK = DT + 4;  // q and K row stride, in floats
-  static constexpr size_t smem_floats =
-      static_cast<size_t>(kTileQ) * LDK + static_cast<size_t>(kChunk) * LDK +
-      static_cast<size_t>(kChunk) * DT + kWarps * kRowsPerWarp * kChunk;
-};
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (VW == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x;
-    out[1] = x.y;
-    out[2] = x.z;
-    out[3] = x.w;
-  } else if constexpr (VW == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x;
-    out[1] = x.y;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + n) of a [*, d] matrix of T into a [ROWS][LD] tile of
+// THREADS threads, zero past n rows and d columns: by cp.async in 16-byte
+// pieces where vec (d a multiple of 16 bytes and 16-byte aligned rows), by
+// plain loads otherwise.
+template <typename T, int DT, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
+                                          size_t row0, int n, int d,
+                                          bool vec) {
+  if (vec) {
+    constexpr int PER = 16 / sizeof(T);
+    constexpr int PIECES = DT / PER;
+    for (int e = threadIdx.x; e < ROWS * PIECES; e += THREADS) {
+      const int r = e / PIECES;
+      const int c = (e - r * PIECES) * PER;
+      const bool ok = r < n && c < d;
+      cp_async16(smem_addr(dst + r * LD + c),
+                 ok ? src + (row0 + r) * d + c : src, ok ? 16 : 0);
+    }
   } else {
-    out[0] = *p;
-  }
-}
-
-// Copies rows [row0, row0 + n) of a [*, d] matrix into a [rows][ld] f32
-// tile, zero past n rows and d columns.
-template <int DT, typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, int rows,
-                                          const T* __restrict__ src,
-                                          size_t row0, int n, int d) {
-  for (int e = threadIdx.x; e < rows * DT; e += kThreads) {
-    const int r = e / DT;
-    const int c = e - r * DT;
-    dst[r * ld + c] =
-        (r < n && c < d) ? load_f32(src + (row0 + r) * d + c) : 0.f;
-  }
-}
-
-// CTAs per SM asked of ptxas.  At DT = 256 the 141 KB of shared memory
-// leave room for one, so ptxas may give the 8 x 8 accumulator all the
-// registers it needs.  The 64- and 128-column tiles fit two CTAs per SM
-// (43 and 75 KB), which caps them at 128 registers: one CTA per SM would
-// cost them about a quarter of their speed.  Under that cap their score
-// loop is not unrolled (below), or ptxas spills.
-template <int DT>
-constexpr int kMinBlocks = DT == 256 ? 1 : 2;
-
-template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DT>)
-    bsattn_kernel(const int* __restrict__ ell_idx,
-                  const int* __restrict__ valid, const T* __restrict__ q,
-                  const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ out, int s, int d, int n_slots, int block_q,
-                  int block_kv, int group, int causal, int window,
-                  float scale) {
-  using C = Cols<DT>;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [kTileQ][LDK]
-  float* Ks = Qs + kTileQ * C::LDK;      // [kChunk][LDK]
-  float* Vs = Ks + kChunk * C::LDK;      // [kChunk][DT]
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* Pw = Vs + kChunk * DT + warp * kRowsPerWarp * kChunk;  // [8][32]
-
-  const int tiles = (block_q + kTileQ - 1) / kTileQ;
-  const int nq = s / block_q;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x) / tiles;
-  const int q0 = qi * block_q + (blockIdx.x % tiles) * kTileQ;
-  const int nr = min(kTileQ, (qi + 1) * block_q - q0);  // live rows
-  const int bh = blockIdx.y;
-  const size_t kv_row0 = static_cast<size_t>(bh / group) * s;
-  const int* slot_idx = ell_idx + static_cast<size_t>(qi) * n_slots;
-  const int* slot_ok = valid + static_cast<size_t>(qi) * n_slots;
-
-  load_tile<DT>(Qs, C::LDK, kTileQ, q, static_cast<size_t>(bh) * s + q0, nr,
-                d);
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][C::CPL];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::CPL; ++c) acc[i][c] = 0.f;
-  }
-  const int row0 = warp * kRowsPerWarp;  // this warp's first tile row
-  const int q_last = q0 + nr - 1;
-
-  for (int w = 0; w < n_slots; ++w) {
-    if (slot_ok[w] == 0) continue;  // exact: m, l, acc unchanged
-    const int kb = slot_idx[w] * block_kv;
-    for (int c0 = 0; c0 < block_kv; c0 += kChunk) {
-      const int k_first = kb + c0;
-      const int nk = min(kChunk, block_kv - c0);
-      // chunks ascend: once past the tile's last row, all are masked
-      if (causal && k_first > q_last) break;
-      if (window > 0 && k_first + nk - 1 <= q0 - window) continue;
-      __syncthreads();  // the previous chunk's readers are done
-      load_tile<DT>(Ks, C::LDK, kChunk, k, kv_row0 + k_first, nk, d);
-      load_tile<DT>(Vs, DT, kChunk, v, kv_row0 + k_first, nk, d);
-      __syncthreads();
-
-      // scores of this warp's 8 rows against the lane's key
-      float sc[kRowsPerWarp];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) sc[i] = 0.f;
-      const float* kr = Ks + lane * C::LDK;
-#pragma unroll (DT == 256 ? 4 : 1)
-      for (int e = 0; e < DT; e += 4) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(kr + e);
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(Qs + (row0 + i) * C::LDK + e);
-          sc[i] = fmaf(qv.x, kv4.x, sc[i]);
-          sc[i] = fmaf(qv.y, kv4.y, sc[i]);
-          sc[i] = fmaf(qv.z, kv4.z, sc[i]);
-          sc[i] = fmaf(qv.w, kv4.w, sc[i]);
-        }
-      }
-
-      // online softmax, one row at a time across the warp
-      const int kpos = k_first + lane;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = row0 + i;
-        const int qpos = q0 + r;
-        bool live = lane < nk && r < nr;
-        if (causal) live = live && kpos <= qpos;
-        if (window > 0) live = live && kpos > qpos - window;
-        const float sv = live ? sc[i] * scale : kNegInf;
-        const float m_new = fmaxf(m[i], warp_max(sv));
-        const float alpha = expf(m[i] - m_new);
-        const float p = live ? expf(sv - m_new) : 0.f;
-        l[i] = l[i] * alpha + warp_sum(p);
-        m[i] = m_new;
-#pragma unroll
-        for (int c = 0; c < C::CPL; ++c) acc[i][c] *= alpha;
-        Pw[i * kChunk + lane] = as_input(p, q);
-      }
-      __syncwarp();
-
-      // acc += p @ V_chunk
-#pragma unroll 2
-      for (int kk = 0; kk < kChunk; kk += 4) {
-        float4 pr[kRowsPerWarp];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          pr[i] = *reinterpret_cast<const float4*>(Pw + i * kChunk + kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float vv[C::CPL];
-#pragma unroll
-          for (int t = 0; t < C::NV; ++t)
-            load_vec<C::VW>(Vs + (kk + j) * DT + t * 32 * C::VW + lane * C::VW,
-                            vv + t * C::VW);
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) {
-            const float pj = j == 0 ? pr[i].x
-                           : j == 1 ? pr[i].y
-                           : j == 2 ? pr[i].z
-                                    : pr[i].w;
-#pragma unroll
-            for (int c = 0; c < C::CPL; ++c)
-              acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
-          }
-        }
-      }
-      __syncwarp();  // Pw is rewritten by the next chunk
+    for (int e = threadIdx.x; e < ROWS * DT; e += THREADS) {
+      const int r = e / DT;
+      const int c = e - r * DT;
+      dst[r * LD + c] = (r < n && c < d) ? src[(row0 + r) * d + c] : T{};
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = row0 + i;
-    if (r >= nr) continue;
-    const float den = fmaxf(l[i], kTiny);
-    T* o = out + (static_cast<size_t>(bh) * s + q0 + r) * d;
-#pragma unroll
-    for (int t = 0; t < C::NV; ++t)
-#pragma unroll
-      for (int e = 0; e < C::VW; ++e) {
-        const int col = t * 32 * C::VW + lane * C::VW + e;
-        if (col < d) store(o + col, acc[i][t * C::VW + e] / den);
-      }
-  }
 }
-
-template <typename T, int DT>
-cudaError_t launch(const int* ell_idx, const int* valid, const void* q,
-                   const void* k, const void* v, void* out, int bh, int bkv,
-                   int s, int d, int n_slots, int block_q, int block_kv,
-                   int causal, int window, float scale, cudaStream_t stream) {
-  auto kernel = bsattn_kernel<T, DT>;
-  const size_t smem = Cols<DT>::smem_floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int tiles = (block_q + kTileQ - 1) / kTileQ;
-  const dim3 grid((s / block_q) * tiles, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      ell_idx, valid, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, d, n_slots, block_q,
-      block_kv, bh / bkv, causal, window, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace ffma
 
 namespace tc {
 
@@ -336,7 +183,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileQ = kWarps * 16;  // 64 q rows per CTA, 16 per warp
 constexpr int kStages = 2;           // K / V chunks in flight
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys per chunk.  At D = 256, 32 keep the scores at 16 f32 registers a
 // thread beside the 128 of the O accumulator, and a CTA under half an
@@ -361,28 +207,6 @@ struct Tile {
   static constexpr size_t bytes =
       sizeof(bf16) * (static_cast<size_t>(Q_ELEMS) + 2 * kStages * KV_ELEMS);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros where
-// bytes is 0 (nothing is read then).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -417,34 +241,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Rows [row0, row0 + n) of a [*, d] matrix into a [ROWS][LD] tile, zero
-// past n rows and d columns: by cp.async in 16-byte pieces where vec
-// (d % 8 == 0 and 16-byte aligned rows), by plain loads otherwise.
-template <int DT, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          size_t row0, int n, int d,
-                                          bool vec) {
-  constexpr int LD = Tile<DT>::LD;
-  if (vec) {
-    constexpr int PIECES = DT / 8;
-    for (int e = threadIdx.x; e < ROWS * PIECES; e += kThreads) {
-      const int r = e / PIECES;
-      const int c = (e - r * PIECES) * 8;
-      const bool ok = r < n && c < d;
-      cp_async16(smem_addr(dst + r * LD + c),
-                 ok ? src + (row0 + r) * d + c : src, ok ? 16 : 0);
-    }
-  } else {
-    const bf16 zero = __ushort_as_bfloat16(0);
-    for (int e = threadIdx.x; e < ROWS * DT; e += kThreads) {
-      const int r = e / DT;
-      const int c = e - r * DT;
-      dst[r * LD + c] = (r < n && c < d) ? src[(row0 + r) * d + c] : zero;
-    }
-  }
 }
 
 template <int DT>
@@ -508,8 +304,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const size_t row0 =
         kv_row0 + static_cast<size_t>(slot_idx[w]) * block_kv + c0;
     const int nk = min(KEYS, block_kv - c0);
-    load_rows<DT, KEYS>(Ks + stage * L::KV_ELEMS, k, row0, nk, d, vec);
-    load_rows<DT, KEYS>(Vs + stage * L::KV_ELEMS, v, row0, nk, d, vec);
+    load_rows<bf16, DT, LD, KEYS, kThreads>(Ks + stage * L::KV_ELEMS, k,
+                                            row0, nk, d, vec);
+    load_rows<bf16, DT, LD, KEYS, kThreads>(Vs + stage * L::KV_ELEMS, v,
+                                            row0, nk, d, vec);
   };
 
   float o[NO][4];
@@ -523,8 +321,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   int w = 0, c0 = -KEYS;
   bool have = next_chunk(w, c0);
   if (have) {
-    load_rows<DT, kTileQ>(Qs, q, static_cast<size_t>(bh) * s + q0, nr, d,
-                          vec);
+    load_rows<bf16, DT, LD, kTileQ, kThreads>(
+        Qs, q, static_cast<size_t>(bh) * s + q0, nr, d, vec);
     load_kv(w, c0, 0);
     cp_async_commit();
   }
@@ -713,6 +511,434 @@ cudaError_t launch(const int* ell_idx, const int* valid, const void* q,
 
 }  // namespace tc
 
+namespace tf32 {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKeys = 32;  // keys a chunk
+
+// Warps a CTA, and warps that share a group of 16 q rows, each with
+// DT / kSplit of the output columns.  O is D / 2 floats a thread for a
+// warp that owns all of D, which at D = 256 leaves no registers for the
+// per-chunk fold of P V (below): there two warps share each 16 rows, add
+// their halves of the scores through shared memory, and own 128 output
+// columns each.  At D = 256 the CTA is 8 warps and 64 q rows (70 KB), with
+// one chunk each of K and V (68 KB) and the partial scores (16 KB); below,
+// 4 warps and 64-row tiles (D = 128: 72 KB a CTA, three an SM).
+template <int DT>
+constexpr int kWarps = DT == 256 ? 8 : 4;
+template <int DT>
+constexpr int kSplit = DT == 256 ? 2 : 1;
+
+template <int DT>
+struct Tile {
+  static constexpr int WARPS = kWarps<DT>;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int SPLIT = kSplit<DT>;
+  static constexpr int DW = DT / SPLIT;            // output columns a warp
+  static constexpr int ROWS = WARPS / SPLIT * 16;  // q rows a CTA
+  // Row strides in floats.  Q and K fragments are float4 reads of one row
+  // per 4 lanes: a stride of 16 mod 32 puts the two rows a quarter-warp
+  // reads on distinct banks.  V fragments are float4 reads of rows 2 t and
+  // 2 t + 1 at columns 4 g: 4 mod 16 puts the four rows a quarter-warp
+  // reads 8 banks apart.
+  static constexpr int LDK = DT + 16;
+  static constexpr int LDV = DT + 4;
+  static constexpr int Q_ELEMS = ROWS * LDK;
+  static constexpr int K_ELEMS = kKeys * LDK;
+  static constexpr int V_ELEMS = kKeys * LDV;
+  // each warp's 16 x kKeys partial scores, where two warps share the rows
+  static constexpr int X_ELEMS = SPLIT > 1 ? WARPS * 16 * kKeys : 0;
+  static constexpr size_t bytes =
+      sizeof(float) *
+      (static_cast<size_t>(Q_ELEMS) + K_ELEMS + V_ELEMS + X_ELEMS);
+};
+
+// f32 bits rounded to TF32 (the low 13 mantissa bits 0), to nearest with
+// ties away from zero: cvt.rna's rounding for finite x, with an integer
+// add and a mask, which issue at the ALU's rate where cvt runs at the
+// conversion unit's lower one.
+__device__ __forceinline__ uint32_t round_tf32(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo, both TF32: hi is x rounded to TF32 and lo is x - hi (exact
+// in f32) rounded to TF32, so x - hi - lo is at most 2^-22 |x|.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(__float_as_uint(x));
+  lo = round_tf32(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major), TF32 operands, f32
+// accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with f32 operands split as above: the three products that
+// matter (lo lo is below 2^-22 of the product), the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint32_t b0_hi, uint32_t b1_hi,
+                                           uint32_t b0_lo, uint32_t b1_lo) {
+  mma_tf32(d, a_lo, b0_hi, b1_hi);
+  mma_tf32(d, a_hi, b0_lo, b1_lo);
+  mma_tf32(d, a_hi, b0_hi, b1_hi);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(Tile<DT>::THREADS, DT == 256 ? 1 : 2)
+    bsattn_tf32_kernel(const int* __restrict__ ell_idx,
+                       const int* __restrict__ valid,
+                       const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int s, int d, int n_slots, int block_q, int block_kv,
+                       int group, int causal, int window, float scale_log2,
+                       int vec) {
+  using L = Tile<DT>;
+  constexpr int KEYS = kKeys;
+  constexpr int LDK = L::LDK;
+  constexpr int LDV = L::LDV;
+  constexpr int ROWS = L::ROWS;
+  constexpr int THREADS = L::THREADS;
+  constexpr int DW = L::DW;
+  constexpr int NS = KEYS / 8;  // 8-key n-tiles of a warp's scores
+  constexpr int NG = DW / 32;   // 32-column groups of its output
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [ROWS][LDK]
+  float* Ks = Qs + L::Q_ELEMS;  // [KEYS][LDK]
+  float* Vs = Ks + L::K_ELEMS;  // [KEYS][LDV]
+  // [WARPS][NS][32 lanes] float4: partial scores (SPLIT > 1)
+  float4* Xs = reinterpret_cast<float4*>(Vs + L::V_ELEMS);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // fragment rows g and g + 8
+  const int t4 = lane % 4;  // fragment columns
+  const int col0 = warp % L::SPLIT * DW;  // this warp's d columns
+
+  const int tiles = (block_q + ROWS - 1) / ROWS;
+  const int nq = s / block_q;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x) / tiles;
+  const int q0 = qi * block_q + (blockIdx.x % tiles) * ROWS;
+  const int nr = min(ROWS, (qi + 1) * block_q - q0);  // live rows
+  const int bh = blockIdx.y;
+  const size_t kv_row0 = static_cast<size_t>(bh / group) * s;
+  const int* slot_idx = ell_idx + static_cast<size_t>(qi) * n_slots;
+  const int* slot_ok = valid + static_cast<size_t>(qi) * n_slots;
+  const int q_last = q0 + nr - 1;
+  const int w0 = warp / L::SPLIT * 16;  // this warp's first tile row
+  const bool warp_live = w0 < nr;
+  const int wq0 = q0 + w0;                    // its first position
+  const int wq1 = q0 + min(w0 + 15, nr - 1);  // its last live position
+
+  // Moves (w, c0) to the next key chunk that some row of the tile sees;
+  // false once the block-row has none left.
+  auto next_chunk = [&](int& w, int& c0) {
+    c0 += KEYS;
+    for (; w < n_slots; ++w, c0 = 0) {
+      if (slot_ok[w] == 0) continue;  // exact: m, l, acc unchanged
+      const int kb = slot_idx[w] * block_kv;
+      for (; c0 < block_kv; c0 += KEYS) {
+        // chunks ascend: once past the tile's last row, all are masked
+        if (causal && kb + c0 > q_last) break;
+        if (window > 0 &&
+            kb + c0 + min(KEYS, block_kv - c0) - 1 <= q0 - window)
+          continue;
+        return true;
+      }
+    }
+    return false;
+  };
+  // the chunk at (w, c0) of K, then of V, into its tile; one cp.async group
+  // each
+  auto load_k = [&](int w, int c0) {
+    load_rows<float, DT, LDK, KEYS, THREADS>(
+        Ks, k, kv_row0 + static_cast<size_t>(slot_idx[w]) * block_kv + c0,
+        min(KEYS, block_kv - c0), d, vec);
+    cp_async_commit();
+  };
+  auto load_v = [&](int w, int c0) {
+    load_rows<float, DT, LDV, KEYS, THREADS>(
+        Vs, v, kv_row0 + static_cast<size_t>(slot_idx[w]) * block_kv + c0,
+        min(KEYS, block_kv - c0), d, vec);
+    cp_async_commit();
+  };
+
+  // O: output column col0 + 32 G + 4 (fragment column) + i of 32-column
+  // group G sits in n-tile i (see the P V products below)
+  float o[NG][4][4];
+#pragma unroll
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[G][i][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8, scaled by log2(e)
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+
+  int w = 0, c0 = -KEYS;
+  bool have = next_chunk(w, c0);
+  if (have) {
+    load_rows<float, DT, LDK, ROWS, THREADS>(
+        Qs, q, static_cast<size_t>(bh) * s + q0, nr, d, vec);
+    load_k(w, c0);  // with Q in its group
+    load_v(w, c0);
+  }
+  // Fragments.  An m16n8k8 product sums over 8 indices k; which column of
+  // the data each k names is free as long as both operands agree.  For
+  // S = Q K^T, the d columns 4 t, 4 t + 1 (then 4 t + 2, 4 t + 3) of a
+  // 16-column step are k = t and t + 4 of two products, so a thread reads
+  // Q rows g, g + 8 and K key g as one float4 each.  For O += P V, keys
+  // 2 t, 2 t + 1 of an 8-key n-tile are k = t and t + 4: that is where the
+  // S accumulator already holds p, so P needs no shuffle; and the output
+  // columns 4 g + i of a 32-column group are n = g of n-tile i, so a
+  // thread reads V keys 2 t and 2 t + 1 as one float4 each.  A warp reads
+  // its own DW columns of Q, K and V.
+  const float* q_frag = Qs + (w0 + g) * LDK + 4 * t4 + col0;
+  const float* k_frag = Ks + g * LDK + 4 * t4 + col0;
+  const float* v_frag = Vs + 2 * t4 * LDV + 4 * g + col0;
+
+  // K and V of a chunk land apart, one tile each: the next chunk's K loads
+  // while this chunk's P V is multiplied, and its V while its Q K^T is
+  // (at D = 256 two stages of both would not fit beside the q tile).
+  while (have) {
+    int nw = w, nc0 = c0;
+    const bool more = next_chunk(nw, nc0);
+    cp_async_wait<1>();  // this chunk's K; its V may still be landing
+    __syncthreads();
+
+    const int kf = slot_idx[w] * block_kv + c0;  // the chunk's first key
+    const int nk = min(KEYS, block_kv - c0);
+    // a warp whose rows the chunk masks entirely skips it (exact)
+    const bool skip = !warp_live || (causal && kf > wq1) ||
+                      (window > 0 && kf + nk - 1 <= wq0 - window);
+    float sc[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if (!skip) {
+#pragma unroll
+      for (int kk = 0; kk < DW; kk += 16) {
+        const float4 x0 = *reinterpret_cast<const float4*>(q_frag + kk);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(q_frag + 8 * LDK + kk);
+        float4 y[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          y[j] = *reinterpret_cast<const float4*>(k_frag + j * 8 * LDK + kk);
+        // two 8-column steps: columns 4 t, 4 t + 1, then 4 t + 2, 4 t + 3
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t ah[4], al[4];
+          split(h ? x0.z : x0.x, ah[0], al[0]);
+          split(h ? x1.z : x1.x, ah[1], al[1]);
+          split(h ? x0.w : x0.y, ah[2], al[2]);
+          split(h ? x1.w : x1.y, ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(h ? y[j].z : y[j].x, bh0, bl0);
+            split(h ? y[j].w : y[j].y, bh1, bl1);
+            mma_3xtf32(sc[j], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+    }
+    if (L::SPLIT > 1 && !skip) {  // for the warp that shares the rows
+      float4* x = Xs + warp * NS * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        x[j * 32] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+    }
+    __syncthreads();  // every warp is done with this K
+    if (more) {
+      load_k(nw, nc0);
+      cp_async_wait<1>();  // this chunk's V; the next K may still land
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (!skip) {
+      if (L::SPLIT > 1) {  // its partner's half of d: both add the same two
+        const float4* x = Xs + (warp ^ 1) * NS * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float4 y = x[j * 32];
+          sc[j][0] += y.x;
+          sc[j][1] += y.y;
+          sc[j][2] += y.z;
+          sc[j][3] += y.w;
+        }
+      }
+      // mask only where some element of the warp's 16 x KEYS block needs
+      // it: a ragged chunk, rows past the block-row, the diagonal, the
+      // window's edge
+      const bool masked = nk < KEYS || w0 + 16 > nr ||
+                          (causal && kf + KEYS - 1 > wq0) ||
+                          (window > 0 && kf <= wq1 - window);
+      float mx[2] = {m[0], m[1]};
+      uint32_t dead = 0;  // bit 4 j + e: element e of n-tile j is masked
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale_log2;
+          if (masked) {
+            const int key = j * 8 + 2 * t4 + (e & 1);  // in the chunk
+            const int r = w0 + g + (e >> 1) * 8;       // in the tile
+            const int qpos = q0 + r;
+            const int kpos = kf + key;
+            bool live = key < nk && r < nr;
+            if (causal) live = live && kpos <= qpos;
+            if (window > 0) live = live && kpos > qpos - window;
+            if (!live) {
+              x = kNegInf;
+              dead |= 1u << (4 * j + e);
+            }
+          }
+          sc[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the 4 threads of a row are a quad
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        alpha[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+      }
+      // p in f32 into the row sums, and split as the A fragments of P V:
+      // (p of rows g, g + 8 at keys 2 t, then 2 t + 1) of each 8-key n-tile
+      uint32_t ph[NS][4], pl[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = (dead >> (4 * j + e)) & 1u ? 0.f
+                                            : exp2f(sc[j][e] - m[e >> 1]);
+          l[e >> 1] += p[e];
+        }
+        split(p[0], ph[j][0], pl[j][0]);
+        split(p[2], ph[j][1], pl[j][1]);
+        split(p[1], ph[j][2], pl[j][2]);
+        split(p[3], ph[j][3], pl[j][3]);
+      }
+      // O = alpha O + P V.  The chunk's P V is summed on the tensor cores
+      // from 0 and folded into O with one fmaf an element: the tensor
+      // cores add f32 with truncation, so O summed there over every chunk
+      // of a long row would drift.
+#pragma unroll
+      for (int G = 0; G < NG; ++G) {
+        float po[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) po[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float* vj = v_frag + j * 8 * LDV + G * 32;
+          const float4 va = *reinterpret_cast<const float4*>(vj);
+          const float4 vb = *reinterpret_cast<const float4*>(vj + LDV);
+          uint32_t b0h[4], b0l[4], b1h[4], b1l[4];
+          split(va.x, b0h[0], b0l[0]);
+          split(va.y, b0h[1], b0l[1]);
+          split(va.z, b0h[2], b0l[2]);
+          split(va.w, b0h[3], b0l[3]);
+          split(vb.x, b1h[0], b1l[0]);
+          split(vb.y, b1h[1], b1l[1]);
+          split(vb.z, b1h[2], b1l[2]);
+          split(vb.w, b1h[3], b1l[3]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            mma_3xtf32(po[i], ph[j], pl[j], b0h[i], b1h[i], b0l[i], b1l[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[G][i][e] = fmaf(o[G][i][e], alpha[e >> 1], po[i][e]);
+      }
+    }
+    __syncthreads();  // every warp is done with this V
+    if (more) load_v(nw, nc0);
+    w = nw;
+    c0 = nc0;
+    have = more;
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + g + 8 * i;
+    if (r >= nr) continue;
+    const float den = fmaxf(l[i], kTiny);
+    float* orow = out + (static_cast<size_t>(bh) * s + q0 + r) * d;
+#pragma unroll
+    for (int G = 0; G < NG; ++G)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // columns 32 G + 8 t + 4 h + (0..3)
+        const int col = col0 + G * 32 + 8 * t4 + 4 * h;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = o[G][e][2 * i + h] / den;
+        if (vec && col < d) {  // col + 3 < d too: d % 4 == 0
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d) orow[col + e] = x[e];
+        }
+      }
+  }
+}
+
+template <int DT>
+cudaError_t launch(const int* ell_idx, const int* valid, const void* q,
+                   const void* k, const void* v, void* out, int bh, int bkv,
+                   int s, int d, int n_slots, int block_q, int block_kv,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  using L = Tile<DT>;
+  auto kernel = bsattn_tf32_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p);
+  };
+  const int vec =
+      d % 4 == 0 && (addr(q) | addr(k) | addr(v) | addr(out)) % 16 == 0;
+  const int tiles = (block_q + L::ROWS - 1) / L::ROWS;
+  const dim3 grid((s / block_q) * tiles, bh);
+  kernel<<<grid, L::THREADS, L::bytes, stream>>>(
+      ell_idx, valid, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), s, d, n_slots, block_q, block_kv, bh / bkv,
+      causal, window, scale * kLog2e, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // ell_idx, valid int32[s / block_q, n_slots]; q [bh, s, d], k and v
@@ -740,7 +966,7 @@ extern "C" int bsattn_fwd(const int* ell_idx, const int* valid,
     return d <= 64    ? run(tc::launch<64>)
            : d <= 128 ? run(tc::launch<128>)
                       : run(tc::launch<256>);
-  return d <= 64    ? run(ffma::launch<float, 64>)
-         : d <= 128 ? run(ffma::launch<float, 128>)
-                    : run(ffma::launch<float, 256>);
+  return d <= 64    ? run(tf32::launch<64>)
+         : d <= 128 ? run(tf32::launch<128>)
+                    : run(tf32::launch<256>);
 }

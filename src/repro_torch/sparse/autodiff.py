@@ -12,7 +12,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.formats import BlockCOO
 from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
                                          PATH_SELL)
 from repro_torch.kernels.fused import attention as fat
@@ -77,9 +76,11 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
     """Raw sampled dots (B @ C at A's stored slots), in the layout of the
     form the path reads: the unweighted SDDMM.
 
-    The ell path samples with an all-ones block array over the Block-COO
-    view of the form (K3), the sell path over its live tiles (K4); the
-    caller multiplies by the stored values.
+    The ell path samples every cell of the Block-COO view of the form with
+    K3 and no mask (the reference builds an all-ones block array here; the
+    port builds none), in ``result_type(blocks, b)`` as the ones array
+    gave; the sell path samples its structural slots (K4).  The caller
+    multiplies by the stored values.
     """
     form_name = form_read_by(a, path)
     form = a.form(form_name)
@@ -92,11 +93,9 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
         return paths.sample_sell(form, b, c).to(b.dtype)
     if path == PATH_ELL:
         coo = paths.ell_to_coo(form) if form_name == "ell" else form
-        ones = BlockCOO(rows=coo.rows, cols=coo.cols,
-                        blocks=torch.ones_like(coo.blocks), shape=coo.shape)
         out = paths.sddmm_blocked(
-            ones, paths.pad_rows(b, coo.shape[0]),
-            paths.pad_cols(c, coo.shape[1])).blocks
+            coo, paths.pad_rows(b, coo.shape[0]),
+            paths.pad_cols(c, coo.shape[1]), weighted=False).blocks
         return out.reshape(form.blocks.shape)
     if path == PATH_DENSE:
         full = b.float() @ c.float()
@@ -116,10 +115,22 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
 def sddmm_values(path: str, a: SparseMatrix, b: torch.Tensor,
                  c: torch.Tensor) -> torch.Tensor:
     """S = A ⊙ (B @ C): the values, in the layout of the form the path
-    reads (the forward of the reference's ``sddmm_values``)."""
-    raw = sample_exec(path, a, b, c)
+    reads (the forward of the reference's ``sddmm_values``).
+
+    The ell path is one K3 launch with A's values (the form's blocks) as
+    its mask; K3 rounds each dot to the output dtype before the values
+    multiply it, so this equals the raw dots times the values, as the
+    other paths compose them, bit for bit.
+    """
     form_name = form_read_by(a, path)
-    vals = values_of(form_name, a.form(form_name))
+    form = a.form(form_name)
+    if path == PATH_ELL:
+        coo = paths.ell_to_coo(form) if form_name == "ell" else form
+        out = paths.sddmm_blocked(coo, paths.pad_rows(b, coo.shape[0]),
+                                  paths.pad_cols(c, coo.shape[1])).blocks
+        return out.reshape(form.blocks.shape)
+    raw = sample_exec(path, a, b, c)
+    vals = values_of(form_name, form)
     out = vals.float() * raw.float()
     return out.to(torch.promote_types(vals.dtype, b.dtype))
 

@@ -66,9 +66,10 @@ def spmm_coo(coo: BlockCOO, h):
                                                      h.dtype))
 
 
-def sddmm_blocked(coo: BlockCOO, b, c) -> BlockCOO:
-    """coo.blocks ⊙ (B @ C) at the nonzero blocks; B/C already padded."""
-    return sddmm_blockcoo(coo, b, c)
+def sddmm_blocked(coo: BlockCOO, b, c, weighted: bool = True) -> BlockCOO:
+    """coo.blocks ⊙ (B @ C) at the nonzero blocks (B @ C there when not
+    ``weighted``); B/C already padded."""
+    return sddmm_blockcoo(coo, b, c, weighted)
 
 
 def ell_to_coo(ell: BlockELL) -> BlockCOO:

@@ -4,9 +4,12 @@ for K7/K8 the online softmax against the two-sweep; K9 in bf16 at rtol =
 atol = 2e-2, the output and p rounded to bf16), across block shapes,
 ragged edges, K / dk and D-tile widths, all three edge activations, and
 for K9 the causal / window flags, GQA and custom ELL patterns (and for its
-bf16 tensor-core instances padded head dims, key chunks cut by block_kv,
-large logits and empty block-rows); K4 besides, exactly, against the tile
-kernel it replaced; K1/K5's streaming kernel at block fills 0 to 100 %,
+bf16 and f32 tensor-core instances padded head dims, key chunks cut by
+block_kv, q tiles cut by block_q, rescaled running maxima and empty
+block-rows, and for the f32 ones the longest causal rows of S = 32768,
+row by row against an f64 oracle at the 1e-4 row gate); K3 besides without a mask, on native bf16 / f16 operands,
+and its weighted launch bit for bit against the unweighted one times the
+values; K4 besides, exactly, against the tile kernel it replaced; K1/K5's streaming kernel at block fills 0 to 100 %,
 all-padding and empty block-rows, ragged D, bm != bn, grids that the
 kernel splits over clusters of 2 and 4 CTAs, in f32, bf16 and f16,
 launched twice for equal bits; K2-K4 and K6-K8 on bf16
@@ -18,6 +21,8 @@ on the CPU.
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -233,9 +238,10 @@ def test_blockell_edges(dev, dtype):
 
 @pytest.mark.parametrize("dtype", NARROW)
 def test_narrow_operands_of_the_f32_kernels(dev, dtype):
-    """K2, K3, K4, K6, K7 and K8 keep f32 loads: bf16 and f16 operands
-    are promoted by their wrappers and the result cast back (K4's stays
-    f32), held to their plain versions on the same narrow operands."""
+    """K2, K4, K6, K7 and K8 keep f32 loads: bf16 and f16 operands are
+    promoted by their wrappers and the result cast back (K4's stays f32);
+    K3 reads them natively.  Each held to its plain version on the same
+    narrow operands."""
     def cast(*ts):
         return tuple(t.to(dtype) for t in ts)
 
@@ -425,6 +431,41 @@ def test_sddmm_kernels_match_plain(dev, block, k):
               torch.randn(k, 277, device=dev))
 
 
+SDDMM_BLOCKS = BLOCKS + [(5, 7), (16, 12)]  # bn 7 and 12: not whole vectors
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, *NARROW])
+@pytest.mark.parametrize("block", SDDMM_BLOCKS)
+@pytest.mark.parametrize("k", [1, 3, 17, 48])
+def test_sddmm_kernel_without_mask(dev, dtype, block, k):
+    """K3 with no mask (every cell of each tile sampled), B and C read
+    natively in ``dtype``, against its plain version, in ``dtype`` and
+    in f32; then the weighted launch (A's values as the mask) against the
+    unweighted dots times the values in f32, rounded once: equal bit for
+    bit, since K3 rounds each dot to the output dtype first.  K <= 16 with
+    tile rows of whole 16-byte vectors takes the streaming kernel, the
+    rest (K = 17, 48; bn = 7, and 12 in bf16 / f16) the staged one."""
+    bm, bn = block
+    coo = BlockCOO.from_dense(_sparse(k + 7, 301, 277, 0.05), bm, bn,
+                              device=dev)
+    b = torch.randn(coo.shape[0], k, device=dev).to(dtype)
+    c = torch.randn(k, coo.shape[1], device=dev).to(dtype)
+    ops = (coo.rows, coo.cols, None, b, c)
+    for out in (dtype, torch.float32):
+        kw = dict(block=block, out_dtype=out)
+        before = sddmm_blockcoo_kernel.launches
+        got = sddmm_blockcoo_kernel(*ops, **kw)
+        assert sddmm_blockcoo_kernel.launches == before + 1
+        assert got.dtype == out
+        torch.testing.assert_close(got, sddmm_blockcoo_ref(*ops, **kw),
+                                   **DTYPE_TOL[out])
+    dots = sddmm_blockcoo_kernel(*ops, block=block, out_dtype=dtype)
+    vals = coo.blocks.to(dtype)
+    weighted = sddmm_blockcoo_kernel(coo.rows, coo.cols, vals, b, c)
+    assert weighted.dtype == dtype
+    assert torch.equal(weighted, (vals.float() * dots.float()).to(dtype))
+
+
 def _check_k4(sell, b, c):
     """K4 on its slot operands against its plain version (TOL) and against
     the tile kernel's output gathered to slots.  The tile kernel sums each
@@ -608,6 +649,57 @@ def test_bsattn_bf16_tensor_core_edges(dev, d, blocks):
                                     **kw).float(),
             **BSATTN_TOL[torch.bfloat16])
         assert bool((got[:, 2 * bq:3 * bq] == 0).all())
+
+
+@pytest.mark.parametrize("d", [16, 33, 100, 256])
+@pytest.mark.parametrize("blocks", [(64, 48), (96, 80), (128, 40)])
+def test_bsattn_f32_tensor_core_edges(dev, d, blocks):
+    """K9's f32 instances (three TF32 products for each f32 product on the
+    tensor cores): head dims padded with zeros to the tile (16; 33, not a
+    multiple of 4, so loaded without cp.async; 100) and the full 256
+    (two warps a row group, each with 128 columns); ``block_kv`` not a
+    multiple of the 32-key chunk and ``block_q`` not a multiple of the
+    64-row tile; q scaled x2,
+    so the running max moves between chunks; a block-row with no valid
+    slot, exactly 0; at the f32 tolerance."""
+    bq, bk = blocks
+    s = 1920  # a multiple of every block size above
+    q, k, v = _bsattn_inputs(dev, d + bq, torch.float32, s=s, d=d)
+    q = 2 * q
+    for window, causal in ((0, True), (200, True), (0, False)):
+        ell, val = (torch.from_numpy(a).to(dev)
+                    for a in banded_ell(s, bq, bk, window))
+        val[2] = 0  # block-row 2: no valid slot
+        kw = dict(block_q=bq, block_kv=bk, causal=causal, window=window)
+        got = bsattn_kernel(ell, val, q, k, v, **kw)
+        torch.testing.assert_close(
+            got, bsattn_ref(ell, val, q, k, v, scale=d ** -0.5, **kw),
+            **TOL)
+        assert bool((got[:, 2 * bq:3 * bq] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bsattn_f32_long_causal_rows(dev, d):
+    """K9 f32 under the full causal mask at S = 32768 (a global layer's
+    mask at gemma3's prefill length): the last q block, whose rows sum
+    32257 to 32768 keys, held row by row to an f64 oracle at the 1e-4 row
+    gate of chip_smoke.py's phase 4.  Error that grows with a row's keys
+    (O summed across chunks with truncating adds) shows here first."""
+    s, blk = 32768, 512
+    q, k, v = _bsattn_inputs(dev, d, torch.float32, s=s, d=d, bh=2, bkv=1)
+    ell, val = (torch.from_numpy(a).to(dev)
+                for a in banded_ell(s, blk, blk, 0))
+    got = bsattn_kernel(ell, val, q, k, v, block_q=blk, block_kv=blk,
+                        causal=True, window=0)[:, s - blk:]
+    keep = torch.arange(s, device=dev)[None, :] \
+        <= torch.arange(s - blk, s, device=dev)[:, None]
+    sc = (q[:, s - blk:].double() @ k.double().transpose(1, 2)) * d ** -0.5
+    want = torch.softmax(sc.masked_fill(~keep, -math.inf), dim=-1) \
+        @ v.double()
+    row_err = torch.linalg.vector_norm(got.double() - want, dim=-1)
+    row_want = torch.linalg.vector_norm(want, dim=-1)
+    worst = float((row_err / row_want).max())
+    assert bool((row_err <= 1e-4 * row_want).all()), worst
 
 
 def test_bsattn_gqa_head_mapping_on_card(dev):

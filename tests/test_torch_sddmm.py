@@ -12,7 +12,12 @@ the same matrices: the same plan and values within rtol 3e-4, atol 3e-4
 (the reference's own SDDMM tolerance).  bf16 and f16 operands (dots in
 f32, one rounding at the end): rtol = atol = 2e-2, the reference's bf16
 tolerance; K3 returns the reference's default ``jnp.result_type(mask,
-B)`` and K4 f32, as the reference's ``sample_sell_blocked`` does.
+B)`` and K4 f32, as the reference's ``sample_sell_blocked`` does.  K3
+without a mask, and ``sddmm_blockcoo(..., weighted=False)`` whatever A's
+values hold, are held to the reference's K3 over an all-ones mask (how
+the reference's ELL path samples), and the ELL path's one weighted K3
+launch to ``repro.sparse.sddmm`` in every dtype pair and, bit for bit,
+to the composition it replaced (ones mask, then values times dots).
 """
 import dataclasses
 
@@ -372,8 +377,8 @@ def _narrow_matrix(a, dtype, formats):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sddmm_paths_agree_on_dtype(dtype):
-    """The raw dots of every path (csr: element dots, ell: K3 over the
-    all-ones blocks, sell: K4's f32 dots cast once by ``sample_exec``,
+    """The raw dots of every path (csr: element dots, ell: K3 without a
+    mask, sell: K4's f32 dots cast once by ``sample_exec``,
     dense) and the SDDMM values come out in one dtype on the same
     operands, with the same values."""
     a = _weighted(42, density=0.1)
@@ -389,3 +394,125 @@ def test_sddmm_paths_agree_on_dtype(dtype):
         np.testing.assert_allclose(got.densify().float().numpy(),
                                    a * (b.float() @ c.float()).numpy(),
                                    **NARROW_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3 without a mask, and the ELL path's one weighted launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [2, 48])
+def test_k3_without_mask_matches_pallas_ones_mask(k, dtype):
+    """K3 with ``mask_blocks=None`` (every cell of each tile sampled)
+    against the reference's K3 over an all-ones mask of the same dtype
+    (Pallas in interpret mode), which is how the reference's ELL path
+    samples; the output dtype is ``result_type(ones, B)``."""
+    a = _weighted(k + 50)
+    rng = np.random.default_rng(k + 50)
+    coo = BlockCOO.from_dense(a, *BLOCK, pad_to=40, device="cpu")
+    jcoo = JBlockCOO.from_dense(a, *BLOCK, pad_to=40)
+    ones = torch.ones(coo.blocks.shape, dtype=dtype)
+    jcoo = dataclasses.replace(jcoo, blocks=to_jax(ones))
+    b = _t(rng.normal(size=(coo.shape[0], k)).astype(np.float32)).to(dtype)
+    c = _t(rng.normal(size=(k, coo.shape[1])).astype(np.float32)).to(dtype)
+    want = j_sddmm_blockcoo(jcoo, to_jax(b), to_jax(c), interpret=True).blocks
+    before = sddmm_blockcoo_kernel.launches
+    got = sddmm_blockcoo_kernel(coo.rows, coo.cols, None, b, c,
+                                block=BLOCK, out_dtype=dtype)
+    assert sddmm_blockcoo_kernel.launches == before  # plain version on CPU
+    assert got.dtype == torch_dtype(want.dtype) == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **KERNEL_TOL)
+    else:
+        assert_narrow_close(got, want)
+    # the no-mask result is the ones mask's, bit for bit (1 * dot == dot)
+    assert torch.equal(got, sddmm_blockcoo_ref(coo.rows, coo.cols, ones, b,
+                                               c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_sddmm_blockcoo_unweighted_reads_no_values(dtype):
+    """``sddmm_blockcoo(..., weighted=False)``: B @ C at every cell of the
+    nonzero blocks in ``result_type(blocks, B)``, the reference's K3 over a
+    ones mask, whatever A's values hold (NaN here)."""
+    a = _weighted(7)
+    rng = np.random.default_rng(7)
+    coo = BlockCOO.from_dense(a, *BLOCK, pad_to=40, device="cpu")
+    ones = torch.ones(coo.blocks.shape, dtype=dtype)
+    jcoo = dataclasses.replace(JBlockCOO.from_dense(a, *BLOCK, pad_to=40),
+                               blocks=to_jax(ones))
+    b = _t(rng.normal(size=(coo.shape[0], 2)).astype(np.float32)).to(dtype)
+    c = _t(rng.normal(size=(2, coo.shape[1])).astype(np.float32)).to(dtype)
+    nan = dataclasses.replace(coo, blocks=torch.full_like(ones, float("nan")))
+    got = sddmm_blockcoo(nan, b, c, weighted=False)
+    assert (got.rows is coo.rows) and got.shape == coo.shape
+    want = j_sddmm_blockcoo(jcoo, to_jax(b), to_jax(c), interpret=True).blocks
+    assert got.blocks.dtype == torch_dtype(want.dtype) == dtype
+    assert torch.equal(got.blocks, sddmm_blockcoo(
+        dataclasses.replace(coo, blocks=ones), b, c).blocks)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.blocks.numpy(), np.asarray(want),
+                                   **KERNEL_TOL)
+    else:
+        assert_narrow_close(got.blocks, want)
+
+
+@pytest.mark.parametrize("val_dt,b_dt", DTYPE_PAIRS)
+def test_ell_sddmm_matches_reference_in_every_dtype(val_dt, b_dt):
+    """The ELL path's values (one K3 launch with A's values as its mask)
+    through ``sddmm_values`` and ``ops.sddmm`` against
+    ``repro.sparse.sddmm`` on the ell path, values and factors in each
+    dtype pair: the same dtype, and values within the reference's bf16
+    tolerance (f32: its SDDMM tolerance)."""
+    a = _weighted(43, density=0.1)
+    rng = np.random.default_rng(43)
+    b = _t(rng.normal(size=(M, 2)).astype(np.float32)).to(b_dt)
+    c = _t(rng.normal(size=(2, N)).astype(np.float32)).to(b_dt)
+    mat = _narrow_matrix(a, val_dt, ("ell",))
+    jmat = JSparseMatrix.from_dense(a, formats=("ell",), block=BLOCK)
+    jmat = jmat.with_data(to_jax(values_of("ell", mat.form("ell"))))
+    want = j_sddmm(jmat, to_jax(b), to_jax(c), policy="ell")
+    vals = autodiff.sddmm_values("ell", mat, b, c)
+    got = ops.sddmm(mat, b, c, policy="ell")
+    assert got.formats == want.formats == ("ell",)
+    assert vals.dtype == got.data.dtype == torch_dtype(want.data.dtype)
+    assert torch.equal(vals, got.data)
+    if val_dt == b_dt == torch.float32:
+        np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                                   **TOL)
+    else:
+        assert_narrow_close(got.data, want.data)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ell_one_launch_equals_ones_mask_then_values(dtype):
+    """The ELL path's single weighted K3 launch against the composition it
+    replaced: K3 over an all-ones mask, then the values times the dots in
+    f32, rounded once to ``result_type(values, B)``.  K3 rounds each dot
+    to the output dtype before the mask multiplies it, so the two agree
+    bit for bit in every dtype (in f32 the rounding is a no-op)."""
+    a = _weighted(44, density=0.2)
+    rng = np.random.default_rng(44)
+    b = _t(rng.normal(size=(M, 3)).astype(np.float32)).to(dtype)
+    c = _t(rng.normal(size=(3, N)).astype(np.float32)).to(dtype)
+    mat = _narrow_matrix(a, dtype, ("ell",))
+    ell = mat.form("ell")
+    coo = BlockCOO(rows=torch.arange(ell.n_block_rows, dtype=torch.int32)
+                   .repeat_interleave(ell.ell_width),
+                   cols=ell.indices.reshape(-1),
+                   blocks=ell.blocks.reshape(-1, *BLOCK), shape=ell.shape)
+    b_pad = torch.nn.functional.pad(b, (0, 0, 0, ell.shape[0] - M))
+    c_pad = torch.nn.functional.pad(c, (0, ell.shape[1] - N))
+    raw = sddmm_blockcoo_ref(coo.rows, coo.cols, torch.ones_like(coo.blocks),
+                             b_pad, c_pad)
+    old = (coo.blocks.float() * raw.float()).to(
+        torch.promote_types(coo.blocks.dtype, b.dtype))
+    got = autodiff.sddmm_values("ell", mat, b, c)
+    assert got.dtype == dtype
+    assert torch.equal(got, old.reshape(ell.blocks.shape))
+    # and the raw dots: K3 without a mask, no ones array
+    assert torch.equal(autodiff.sample_exec("ell", mat, b, c),
+                       raw.reshape(ell.blocks.shape))
