@@ -20,8 +20,10 @@ Phases, each of which must pass or the script exits non-zero:
      operands; K4 on its slot operands, held
      besides, exactly, to the tile kernel gathered to slots, with padding
      and edge-less rows' slots exactly 0); K7/K8 at dk = 2 and 48,
-     D = 16 and 48, with edge-less rows
-     and all three edge activations; K9 in f32 and bf16 at S = 256, GQA
+     D = 16 and 48, in f32 and bf16, with edge-less rows (exactly 0) and
+     all three edge activations, each launched twice for equal bits (K8
+     on its row view, held besides to the tile-granular plain version);
+     K9 in f32 and bf16 at S = 256, GQA
      8:2, D = 64 and 256, blocks (64, 64), (64, 32) and (128, 64),
      windows 0 and 64, causal and not, and a custom ELL pattern with
      invalid slots and fully masked rows (exactly 0).
@@ -38,18 +40,21 @@ Phases, each of which must pass or the script exits non-zero:
      SpMM kernels, ``torch.sparse.sampled_addmm`` for K4 and for K3
      without a mask; printed here, never called by the port) and beside
      its bound from
-     bytes and the FP32 operations its nonzeros need (K1/K5: the blocks
-     once, with the bytes its design moves printed beside, counted from
-     the shapes, not read from a counter; K2/K6: the two row
+     bytes and the FP32 operations its nonzeros need (K1/K5 and K7: the
+     blocks once, with K1/K5's bytes by their design printed beside,
+     counted from the shapes, not read from a counter; K2/K6: the two row
      arrays, each nonzero's column and value, H and Y; K4: the row arrays,
-     each nonzero's column, B, C and the slot output; K2/K6 also with
+     each nonzero's column, B, C and the slot output; K8: the row arrays,
+     each nonzero's column and value, q, kT, V and Y; K2/K6 also with
      every row cut to the p99 count, to show what the heaviest rows
-     cost).  Then, with the kernel launch counts set to 0 just before and
-     read just after:
+     cost; K7/K8 at D = 128 and 16, the widths of a GAT request).  Then,
+     with the kernel launch counts set to 0 just before and read just
+     after:
        GCN: 8 requests through ``GNNServingEngine``, logits held to a
             dense f32 oracle (TF32 off), and one request with
             ``fuse=False``; one more request profiled, which must call
-            neither ``sell_tile_blocks`` nor ``sell_row_ptr``;
+            neither ``sell_tile_blocks`` nor ``sell_row_ptr`` (the tile
+            view's helpers);
        SDDMM: one ``repro_torch.sparse.ops.sddmm`` call at K = 2, its
             plan and values held to a dense f32 oracle of A ⊙ (B C), its
             peak memory beyond the inputs printed (on (a) at most its
@@ -62,9 +67,11 @@ Phases, each of which must pass or the script exits non-zero:
             ``sampled_addmm``) and as the entry point launches it (A's
             values as the mask: the kernel row);
        GAT: 8 requests through ``GNNServingEngine(model="gat")``, logits
-            held to a dense f32 masked-softmax oracle, and one request
+            held to a dense f32 masked-softmax oracle; then 5 requests
             with ``fuse=False`` (no kernel: it samples on the csr
-            pattern) held to the fused logits.
+            pattern) in turns with 5 fused ones, held to the fused
+            logits, the two medians printed side by side; one more
+            request profiled, which must call neither tile-view helper.
   4. Block-sparse attention at gemma3-4b width (the port's
      ``configs.gemma3_4b.CONFIG``: 8 q heads on 4 kv heads, head dim 256,
      window 1024, 512 x 512 blocks), batch 1, q, k and v standard normal
@@ -152,6 +159,7 @@ ATTN_F32_RTOL = 1e-4
 ATTN_BF16_TOL = dict(rtol=1e-2, atol=2e-3)
 ATTN_ATOL = 1e-6
 REQUESTS = 8
+TURNS = 5  # fused and fuse=False GAT requests timed in turns
 SEED = 0
 N_NODES = 16384
 S_LOCAL = 32768   # phase 4 (i): the prefill_32k length, local-layer window
@@ -454,7 +462,8 @@ def ragged_checks_blockell(torch, np, port):
 
 def ragged_checks_sddmm_attention(torch, np, port):
     """Phase 2 for K3/K4 (K = 2 and 48) and K7/K8 (dk = 2 and 48, D = 16
-    and 48, edge-less rows, every edge activation) at m = 1000."""
+    and 48, f32 and bf16, edge-less rows, every edge activation, each
+    launched twice for equal bits; K8 on its row view) at m = 1000."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 1)
     m, bm = 1000, 64
@@ -472,6 +481,7 @@ def ragged_checks_sddmm_attention(torch, np, port):
     sell = port.SellCS.from_dense(a_sell, block=(bm, bm), device=dev)
     live = sell.n_live_block_rows
     pattern = (port.sell.sell_tile_blocks(sell) != 0).float()
+    rows8 = port.attention.fused_attn_sell_operands(sell)
     k3, k3_plain = port.wrappers["K3"], port.sddmm_ref.sddmm_blockcoo_ref
     for k in (2, 48):
         ops = (coo.rows, coo.cols, coo.blocks,
@@ -508,32 +518,53 @@ def ragged_checks_sddmm_attention(torch, np, port):
             "equal to the tile kernel gathered to slots; padding and "
             "edge-less rows' slots exactly 0)")
     att = port.attention
+    edgeless = sell.tile_row_nnz == 0  # edge-less and padding rows
     for dk in (2, 48):
         for d in (16, 48):
             errs = {"K7": 0.0, "K8": 0.0}
-            for act in ACTS:
+            for act, dtype in itertools.product(
+                    ACTS, (torch.float32, torch.bfloat16)):
                 kw = dict(act=act, slope=0.2)
-                ops = (ell.indices, ell.blocks,
-                       torch.randn(n_pad, dk, device=dev),
-                       torch.randn(dk, n_pad, device=dev),
-                       torch.randn(n_pad, d, device=dev))
+                what = f"dk={dk} d={d} {act} {str(dtype).split('.')[-1]}"
+                tol = KERNEL_TOL if dtype == torch.float32 else NARROW_TOL
+                ops = (ell.indices, ell.blocks.to(dtype),
+                       *(torch.randn(shape, device=dev).to(dtype) for shape
+                         in ((n_pad, dk), (dk, n_pad), (n_pad, d))))
                 got = port.wrappers["K7"](*ops, **kw)
-                err = check_close(torch, f"K7 ragged dk={dk} d={d} {act}",
-                                  got, att.fused_attn_blockell_ref(*ops, **kw))
+                err = check_close(torch, f"K7 ragged {what}", got.float(),
+                                  att.fused_attn_blockell_ref(*ops, **kw)
+                                  .float(), tol)
                 if bool(got[[3, 500, 999]].any()):
                     raise AssertionError("K7: edge-less rows are not 0")
+                if not torch.equal(got, port.wrappers["K7"](*ops, **kw)):
+                    raise AssertionError(f"K7 {what}: two launches gave "
+                                         "different bits")
                 errs["K7"] = max(errs["K7"], err)
-                ops = (sell.tile_rows, sell.tile_cols, pattern,
-                       torch.randn(live * bm, dk, device=dev),
-                       torch.randn(dk, n_pad, device=dev),
-                       torch.randn(n_pad, d, device=dev))
-                kw["n_live_block_rows"] = live
+                # K8 on the row view, held to its plain version and to the
+                # tile-granular one over the same matrix
+                q, kt, v = (torch.randn(shape, device=dev).to(dtype)
+                            for shape in ((live * bm, dk), (dk, n_pad),
+                                          (n_pad, d)))
+                ops = (*rows8, q, kt[:, :m].contiguous(), v[:m])
+                got = port.wrappers["K8"](
+                    *ops, heavy_rows=sell.tile_heavy_rows, **kw)
                 errs["K8"] = max(errs["K8"], check_close(
-                    torch, f"K8 ragged dk={dk} d={d} {act}",
-                    port.wrappers["K8"](*ops, **kw),
-                    att.fused_attn_sell_tiles_ref(*ops, **kw)))
-            log(f"ragged m={m} dk={dk} d={d} ({', '.join(ACTS)}; edge-less "
-                "rows exactly 0): max_abs_err "
+                    torch, f"K8 ragged {what}", got.float(),
+                    att.fused_attn_sell_rows_ref(*ops, **kw).float(), tol))
+                check_close(torch, f"K8 ragged {what} vs tiles", got.float(),
+                            att.fused_attn_sell_tiles_ref(
+                                sell.tile_rows, sell.tile_cols, pattern, q,
+                                kt, v, n_live_block_rows=live, **kw).float(),
+                            tol)
+                if bool(got[edgeless].any()):
+                    raise AssertionError("K8: edge-less rows are not 0")
+                if not torch.equal(got, port.wrappers["K8"](
+                        *ops, heavy_rows=sell.tile_heavy_rows, **kw)):
+                    raise AssertionError(f"K8 {what}: two launches gave "
+                                         "different bits")
+            log(f"ragged m={m} dk={dk} d={d} ({', '.join(ACTS)}; f32 and "
+                "bf16; edge-less rows exactly 0; two launches equal; K8 "
+                "also held to the tile-granular plain version): max_abs_err "
                 + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
 
 
@@ -735,6 +766,8 @@ def blockell_moves(torch, port, ell, h, nnz, epi, name, args):
         del b16
 
 
+# sell_row_ptr is gone from the port; a request that calls either builds
+# tile data (or a row pointer and its host sync) per call
 TILE_VIEW_HELPERS = ("sell_tile_blocks", "sell_row_ptr")
 
 
@@ -1080,32 +1113,46 @@ def gat_phase(torch, port, graph, pattern, label, want_path, xs):
     if want_path == "ell":
         name, plain = "K7", att.fused_attn_blockell_ref
         ell = graph.adj.form("ell")
-        topo, n_rows, n_pad = (ell.indices, ell.blocks), ell.shape[0], \
+        topo, n_rows, n_keys = (ell.indices, ell.blocks), ell.shape[0], \
             ell.shape[1]
+        nnz = int((ell.blocks != 0).sum())
+        # K7's bound: the blocks once (and the small operands once)
+        topo_bytes = nbytes_of(*topo)
+        kernel_kw = kw
         what = f"nbr={ell.n_block_rows} W={ell.ell_width} block=" \
-            f"{ell.bm}x{ell.bn} dk={dk} D={d}"
+            f"{ell.bm}x{ell.bn} dk={dk}"
     else:
-        name, plain = "K8", att.fused_attn_sell_tiles_ref
+        name, plain = "K8", att.fused_attn_sell_rows_ref
         sell = graph.adj.form("sell")
-        kw["n_live_block_rows"] = sell.n_live_block_rows
-        topo = (sell.tile_rows, sell.tile_cols,
-                (port.sell.sell_tile_blocks(sell) != 0).float())
-        n_rows = sell.n_live_block_rows * sell.bm
-        n_pad = -(-n // sell.bn) * sell.bn
-        what = (f"T={sell.n_tiles} live_block_rows={sell.n_live_block_rows} "
-                f"block={sell.bm}x{sell.bn} dk={dk} D={d}")
-    args = topo + (torch.randn(n_rows, dk, device=dev, generator=gen),
-                   torch.randn(dk, n_pad, device=dev, generator=gen),
-                   torch.randn(n_pad, d, device=dev, generator=gen))
-    nnz = int((topo[-1] != 0).sum())
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + n_rows * d * 4  # the output
-    # per nonzero: dk + D multiply-adds, and the act, max, exp and sum
-    flops = nnz * (2 * dk + 2 * d + 4)
-    row = measure(torch, name, lambda: port.wrappers[name](*args, **kw),
-                  lambda: plain(*args, **kw), None, nbytes, flops,
-                  f"{what}; nonzeros {nnz}")
-    del args, topo
+        topo = att.fused_attn_sell_operands(sell)
+        row_slot, row_nnz, slot_cols, slot_vals = topo
+        heavy = sell.tile_heavy_rows
+        n_rows, n_keys = row_slot.shape[0], n  # kT and V: logical rows
+        nnz = int(row_nnz.sum())
+        # K8's bound: the row arrays and each nonzero's column and value
+        # (padding slots are never read), then q, kT, V and Y
+        topo_bytes = nbytes_of(row_slot, row_nnz, heavy) + nnz * (
+            slot_cols.element_size() + slot_vals.element_size())
+        kernel_kw = dict(kw, heavy_rows=heavy)
+        what = (f"rows={n_rows} ({sell.n_live_block_rows} live block-rows "
+                f"of {sell.bm}), {heavy.shape[0]} rows above "
+                f"{port.heavy_nnz} a CTA each; dk={dk}")
+    row = None
+    for width in (d, cfg.n_classes):  # the hidden layers' D, the last's
+        args = topo + (torch.randn(n_rows, dk, device=dev, generator=gen),
+                       torch.randn(dk, n_keys, device=dev, generator=gen),
+                       torch.randn(n_keys, width, device=dev, generator=gen))
+        nbytes = topo_bytes + nbytes_of(*args[len(topo):]) \
+            + n_rows * width * 4  # the output
+        # per nonzero: dk + D multiply-adds, and the act, max, exp and sum
+        flops = nnz * (2 * dk + 2 * width + 4)
+        timed = measure(
+            torch, f"{name} D={width}",
+            lambda: port.wrappers[name](*args, **kernel_kw),
+            lambda: plain(*args, **kw), None, nbytes, flops,
+            f"{what}; D={width}; nonzeros {nnz}")
+        row = row or timed  # the kernel row: D = hidden, ×2 a request
+        del args
 
     torch.cuda.synchronize()
     port.reset_counts()
@@ -1125,22 +1172,36 @@ def gat_phase(torch, port, graph, pattern, label, want_path, xs):
         f"tightest tol {worst_tol:.3e} ({ORACLE_RTOL} x max|logit| + "
         f"{ORACLE_ATOL}); " + latency_text(lat, n))
 
+    # fuse=False beside the fused request, in turns, so both meet the same
+    # host; the unfused requests launch no kernel
     unfused = port.engine.GNNServingEngine(
         params, graph, port.engine.GNNServeConfig(model="gat", fuse=False))
     port.reset_counts()
-    t0 = time.perf_counter()
-    got = unfused.infer(xs[0])
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    flat, ulat, err = [], [], 0.0
+    for x in xs[:TURNS]:
+        (fused_out,), (t_fused,) = serve_requests(torch, eng, [x])
+        (got,), (t_unfused,) = serve_requests(torch, unfused, [x])
+        flat.append(t_fused)
+        ulat.append(t_unfused)
+        err = max(err, float((got - fused_out).abs().max()))
     ucounts = port.counts()
-    err = float((got - outs[0]).abs().max())
-    log(f"graph ({label}) GAT fuse=False ({wall:.3f} ms; paths "
-        f"{sorted({p.path for p in port.dispatcher.dispatch_log()[-6:]})}): "
-        f"launches {ucounts}, max_abs_err vs fused {err:.3e}")
-    if ucounts != expected(port, {}, 1) or err > oracle_tol(outs[0]):
+    log(f"graph ({label}) GAT fuse=False (paths "
+        f"{sorted({p.path for p in port.dispatcher.dispatch_log()[-6:]})}) "
+        f"in turns with the fused request, {TURNS} each: launches "
+        f"{ucounts}, max_abs_err vs fused {err:.3e}")
+    if ucounts != expected(port, {name: 3}, TURNS) \
+            or err > oracle_tol(outs[0]):
         raise AssertionError(f"graph ({label}) GAT fuse=False run off: "
                              f"{ucounts}, err {err:.3e}")
-    profile_request(torch, eng, xs[0], f"{label}, GAT")
+    log(f"graph ({label}) GAT request median, in turns: fused "
+        f"{statistics.median(flat):.3f} ms, unfused "
+        f"{statistics.median(ulat):.3f} ms (fused: "
+        f"{', '.join(f'{t:.3f}' for t in flat)}; unfused: "
+        f"{', '.join(f'{t:.3f}' for t in ulat)})")
+    calls = profile_request(torch, eng, xs[0], f"{label}, GAT")
+    if any(calls.values()):
+        raise AssertionError(f"graph ({label}) GAT request built tile data "
+                             f"or a row pointer: {calls}")
     row["launches"] = counts[name]
     return {name: row}
 

@@ -37,10 +37,15 @@ _SIGNATURES = {
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles", [_P] * 6 + [_I] * 7 + [_P]),
     "sddmm_sell_slots": ("sddmm_sell_slots_f32", [_P] * 7 + [_I] * 3 + [_P]),
-    "fused_attention": ("fused_attn_f32", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "fused_attention": ("fused_attn_blockell",
+                        [_I, _I] + [_P] * 6 + [_I] * 8 + [_F, _P]),
+    "fused_attn_sell": ("fused_attn_sell",
+                        [_I, _I] + [_P] * 7 + [_I, _I, _P, _P] + [_I] * 7
+                        + [_F, _P]),
     "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
-_SOURCE = {"sddmm_sell_slots": "sddmm"}
+_SOURCE = {"sddmm_sell_slots": "sddmm",
+           "fused_attn_sell": "fused_attention"}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

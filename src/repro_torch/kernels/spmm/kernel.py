@@ -45,10 +45,12 @@ def result_dtype(*tensors: torch.Tensor) -> torch.dtype:
 
 def check_operand(t: Optional[torch.Tensor], name: str,
                   dtype: Optional[torch.dtype], shape: Sequence[int],
-                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous tensor of ``shape`` on
-    ``device`` and, where ``dtype`` is given, of that dtype (the kernels
-    take nothing else; float operands are checked by ``result_dtype``)."""
+                  device: torch.device, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a tensor of ``shape`` on ``device``,
+    contiguous unless ``contiguous`` is False (a kernel that reads it
+    through its strides), and, where ``dtype`` is given, of that dtype
+    (the kernels take nothing else; float operands are checked by
+    ``result_dtype``)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t)}")
     if t.device != device:
@@ -58,7 +60,7 @@ def check_operand(t: Optional[torch.Tensor], name: str,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

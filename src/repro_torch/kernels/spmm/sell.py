@@ -14,10 +14,11 @@ schedules the work and does not change the function, so the plain
 versions do not take it.  ``spmm_sell_kernel.launches`` counts kernel
 launches.
 
-The tile-granular pieces stay: ``spmm_sell_tiles_ref`` (the reference's
-oracle, a second check of the nonzero-granular plain version),
-``sell_tile_blocks`` (K8 builds its mask from it) and ``sell_row_ptr``
-(K8's row pointer).
+The tile-granular pieces stay for the tests and ``chip_smoke.py``:
+``spmm_sell_tiles_ref`` (the reference's oracle, a second check of the
+nonzero-granular plain version) and ``sell_tile_blocks`` (the live-tile
+data the tile-granular plain versions of K2, K6 and K8 take).  No kernel
+path calls them.
 """
 from __future__ import annotations
 
@@ -155,25 +156,6 @@ def spmm_sell_kernel(row_slot, row_nnz, slot_cols, slot_vals, h, *,
 
 
 spmm_sell_kernel.launches = 0
-
-
-def sell_row_ptr(tile_rows: torch.Tensor, n_live: int) -> torch.Tensor:
-    """First tile of each live block-row, int32[n_live + 1] (K8's).
-
-    Raises unless ``tile_rows`` is non-decreasing and within
-    [0, n_live): K8's one-CTA-per-row split relies on it.
-    """
-    t_count = tile_rows.shape[0]
-    if t_count:
-        bad = (tile_rows[0] < 0) | (tile_rows[-1] >= n_live)
-        if t_count > 1:
-            bad = bad | (tile_rows[1:] < tile_rows[:-1]).any()
-        if bool(bad):
-            raise ValueError("tile_rows must be non-decreasing and lie in "
-                             f"[0, {n_live})")
-    rows = torch.arange(n_live + 1, dtype=torch.int32,
-                        device=tile_rows.device)
-    return torch.searchsorted(tile_rows, rows).to(torch.int32)
 
 
 def sell_tile_blocks(sell: SellCS) -> torch.Tensor:

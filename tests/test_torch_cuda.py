@@ -21,6 +21,7 @@ on the CPU.
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -38,6 +39,8 @@ from repro_torch.kernels.bsattn.ops import banded_ell
 from repro_torch.kernels.fused.attention import (fused_attn_blockell_kernel,
                                                  fused_attn_blockell_ref,
                                                  fused_attn_sell_kernel,
+                                                 fused_attn_sell_operands,
+                                                 fused_attn_sell_rows_ref,
                                                  fused_attn_sell_tiles_ref)
 from repro_torch.kernels.fused.epilogue import Epilogue
 from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
@@ -238,10 +241,10 @@ def test_blockell_edges(dev, dtype):
 
 @pytest.mark.parametrize("dtype", NARROW)
 def test_narrow_operands_of_the_f32_kernels(dev, dtype):
-    """K2, K4, K6, K7 and K8 keep f32 loads: bf16 and f16 operands are
-    promoted by their wrappers and the result cast back (K4's stays f32);
-    K3 reads them natively.  Each held to its plain version on the same
-    narrow operands."""
+    """K2, K4 and K6 keep f32 loads: bf16 and f16 operands are promoted by
+    their wrappers and the result cast back (K4's stays f32); K3, K7 and
+    K8 read them natively.  Each held to its plain version on the same
+    narrow operands (K8 also to its tile-granular plain version)."""
     def cast(*ts):
         return tuple(t.to(dtype) for t in ts)
 
@@ -285,15 +288,19 @@ def test_narrow_operands_of_the_f32_kernels(dev, dtype):
     torch.testing.assert_close(got, fused_attn_blockell_ref(*ops),
                                **NARROW_TOL)
     n_pad = -(-277 // 64) * 64
-    ops = (sell.tile_rows, sell.tile_cols,
-           (sell_tile_blocks(sell) != 0).to(dtype),
-           q[: sell.n_live_block_rows * 64], kt[:, :n_pad].contiguous(),
-           v[:n_pad])
-    kw = dict(n_live_block_rows=sell.n_live_block_rows)
-    got = fused_attn_sell_kernel(*ops, **kw)
+    q_perm = q[: sell.n_live_block_rows * 64]
+    ops = (row_slot, row_nnz, cols, vals.to(dtype), q_perm,
+           kt[:, :277].contiguous(), v[:277])
+    got = fused_attn_sell_kernel(*ops, **heavy)
     assert got.dtype == dtype
-    torch.testing.assert_close(got, fused_attn_sell_tiles_ref(*ops, **kw),
+    torch.testing.assert_close(got, fused_attn_sell_rows_ref(*ops),
                                **NARROW_TOL)
+    tiles = (sell.tile_rows, sell.tile_cols,
+             (sell_tile_blocks(sell) != 0).to(dtype), q_perm,
+             kt[:, :n_pad].contiguous(), v[:n_pad])
+    torch.testing.assert_close(
+        got, fused_attn_sell_tiles_ref(
+            *tiles, n_live_block_rows=sell.n_live_block_rows), **NARROW_TOL)
 
 
 @pytest.mark.parametrize("block", BLOCKS)
@@ -526,16 +533,158 @@ def test_attention_kernels_match_plain(dev, block, dk, d, act):
     sell = SellCS.from_dense(_sparse(dk + d, 301, 277, 0.004), block=block,
                              device=dev)
     n_pad = -(-277 // bn) * bn
-    ops = (sell.tile_rows, sell.tile_cols,
-           (sell_tile_blocks(sell) != 0).float(),
-           torch.randn(sell.n_live_block_rows * bm, dk, device=dev),
-           torch.randn(dk, n_pad, device=dev),
-           torch.randn(n_pad, d, device=dev))
-    kw = dict(n_live_block_rows=sell.n_live_block_rows, act=act, slope=0.2)
+    q_perm = torch.randn(sell.n_live_block_rows * bm, dk, device=dev)
+    kt = torch.randn(dk, n_pad, device=dev)
+    v = torch.randn(n_pad, d, device=dev)
+    ops = (*fused_attn_sell_operands(sell), q_perm, kt[:, :277].contiguous(),
+           v[:277])
+    tiles = (sell.tile_rows, sell.tile_cols,
+             (sell_tile_blocks(sell) != 0).float(), q_perm, kt, v)
+    kw = dict(act=act, slope=0.2)
     before = fused_attn_sell_kernel.launches
-    torch.testing.assert_close(fused_attn_sell_kernel(*ops, **kw),
-                               fused_attn_sell_tiles_ref(*ops, **kw), **TOL)
+    got = fused_attn_sell_kernel(*ops, heavy_rows=sell.tile_heavy_rows, **kw)
     assert fused_attn_sell_kernel.launches == before + 1
+    torch.testing.assert_close(got, fused_attn_sell_rows_ref(*ops, **kw),
+                               **TOL)
+    torch.testing.assert_close(got, fused_attn_sell_tiles_ref(
+        *tiles, n_live_block_rows=sell.n_live_block_rows, **kw), **TOL)
+
+
+ATTN_BLOCKS = [(64, 64), (48, 30)]  # 48 x 30: kT and mask read 1 a lane
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("block", ATTN_BLOCKS)
+@pytest.mark.parametrize("d", [16, 100, 128, 200])
+@pytest.mark.parametrize("dk", [2, 48])
+def test_blockell_attention_streaming(dev, fill, block, d, dk):
+    """K7 against its plain version at empty, sparse and full blocks, a
+    block-row of padding slots and edge-less rows (exactly 0), one and
+    two D-tiles, in f32, bf16 and f16 (blocks, q, kT and V alike); two
+    launches give the same bits."""
+    bm = block[0]
+    for dtype in [torch.float32] + NARROW:
+        idx, blocks, v, _ = _ell_operands(dev, d + dk, fill, block, d, dtype)
+        gen = torch.Generator(device=dev).manual_seed(dk)
+        q = torch.randn(blocks.shape[0] * bm, dk, device=dev,
+                        generator=gen).to(dtype)
+        kt = torch.randn(dk, v.shape[0], device=dev, generator=gen).to(dtype)
+        ops = (idx, blocks, q, kt, v)
+        before = fused_attn_blockell_kernel.launches
+        got = fused_attn_blockell_kernel(*ops)
+        again = fused_attn_blockell_kernel(*ops)
+        assert fused_attn_blockell_kernel.launches == before + 2
+        assert got.dtype == dtype and torch.equal(got, again)
+        torch.testing.assert_close(got, fused_attn_blockell_ref(*ops),
+                                   **DTYPE_TOL[dtype])
+        assert bool((got[bm:2 * bm] == 0).all())  # the padding block-row
+        if fill == 0.0:
+            assert not bool(got.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+def test_blockell_attention_edges(dev, dtype):
+    """K7 on V and q that are not 16-byte aligned (V copied by the
+    producer's lanes), on f32 blocks with narrow q, kT and V and on
+    mixed q / V dtypes (promoted; the output ``result_type(q, v)``), with
+    every edge activation, and at W = 0 (every row exactly 0)."""
+    idx, blocks, v, _ = _ell_operands(dev, 5, 0.1, (64, 64), 48, dtype)
+    q = torch.randn(blocks.shape[0] * 64, 2, device=dev).to(dtype)
+    kt = torch.randn(2, v.shape[0], device=dev).to(dtype)
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    v_off, q_off = offset(v), offset(q)
+    assert v_off.data_ptr() % 16 and q_off.data_ptr() % 16
+    for act in ("identity", "relu", "leaky_relu"):
+        torch.testing.assert_close(
+            fused_attn_blockell_kernel(idx, blocks, q_off, kt, v_off,
+                                       act=act),
+            fused_attn_blockell_ref(idx, blocks, q, kt, v, act=act),
+            **DTYPE_TOL[dtype])
+    ops = (idx, blocks.float(), q, kt, v)
+    torch.testing.assert_close(fused_attn_blockell_kernel(*ops),
+                               fused_attn_blockell_ref(*ops),
+                               **DTYPE_TOL[dtype])
+    ops = (idx, blocks, q, kt.float(), v.float())
+    got = fused_attn_blockell_kernel(*ops)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, fused_attn_blockell_ref(*ops), **TOL)
+    got = fused_attn_blockell_kernel(idx[:, :0].contiguous(),
+                                     blocks[:, :0].contiguous(), q, kt, v)
+    assert got.shape == (idx.shape[0] * 64, 48) and not bool(got.any())
+
+
+def _attention_rows_sell(dev):
+    """A SELL packing (64 x 64 tiles, sigma 8) whose rows have 0, 31, 32,
+    33, 200 and 1,200 nonzeros (the last two above SELL_HEAVY_ROW_NNZ: a
+    CTA each) besides the random ones, with row 23's values all stored as
+    zeros (every entry masked).  Returns the packing and the compact
+    indices of rows 3 (edge-less) and 23."""
+    rng = np.random.default_rng(21)
+    a = _sparse(21, 1000, 1500, 0.004)
+    a[[3, 500, 999]] = 0.0
+    a[17, :1200] = 1.0
+    a[18, 100:300] = rng.standard_normal(200)
+    for r, k in ((20, 31), (21, 32), (22, 33), (23, 40)):
+        a[r] = 0.0
+        a[r, rng.choice(1500, k, replace=False)] = rng.random(k) + 0.5
+    sell = SellCS.from_dense(a, block=(64, 64), sigma=8, device=dev)
+    assert int(sell.tile_row_nnz.max()) >= 1200
+    assert sell.tile_heavy_rows.shape[0] == 2
+    r23 = int(sell.tile_out_gather[23])
+    s0 = int(sell.tile_row_slot[r23])
+    vals = sell.slot_vals.clone()
+    vals[s0:s0 + 40] = 0.0
+    return dataclasses.replace(sell, slot_vals=vals), \
+        int(sell.tile_out_gather[3]), r23
+
+
+@pytest.mark.parametrize("d", [4, 16, 33, 100, 128, 200])
+def test_sell_attention_rows(dev, d):
+    """K8 against its plain version and the tile-granular one on rows of
+    0, 31, 32, 33 and more than 128 nonzeros and an all-masked row
+    (exactly 0), in f32, bf16 and f16 and on mixed dtypes (q and kT,
+    V, the values: promoted, the output ``result_type(q, v)``); two
+    launches give the same bits, and so does kT passed as a transposed
+    view."""
+    sell, r_empty, r_masked = _attention_rows_sell(dev)
+    n_rows = sell.n_live_block_rows * 64
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn(n_rows, 2, device=dev, generator=gen)
+    kt = torch.randn(2, 1536, device=dev, generator=gen)
+    v = torch.randn(1536, d, device=dev, generator=gen)
+    f32, b16, f16 = torch.float32, torch.bfloat16, torch.float16
+    for q_dt, v_dt, vals_dt in ((f32, f32, f32), (b16, b16, b16),
+                                (f16, f16, f32), (b16, f32, f32),
+                                (f16, b16, f16)):
+        ops = (sell.tile_row_slot, sell.tile_row_nnz, sell.slot_cols,
+               sell.slot_vals.to(vals_dt), q.to(q_dt),
+               kt[:, :1500].to(q_dt).contiguous(), v[:1500].to(v_dt))
+        before = fused_attn_sell_kernel.launches
+        got = fused_attn_sell_kernel(*ops, heavy_rows=sell.tile_heavy_rows)
+        again = fused_attn_sell_kernel(*ops, heavy_rows=sell.tile_heavy_rows)
+        assert fused_attn_sell_kernel.launches == before + 2
+        assert torch.equal(got, again)
+        out = torch.promote_types(q_dt, v_dt)
+        assert got.dtype == out
+        tol = DTYPE_TOL[out]
+        torch.testing.assert_close(got, fused_attn_sell_rows_ref(*ops), **tol)
+        tiles = (sell.tile_rows, sell.tile_cols,
+                 (sell_tile_blocks(sell) != 0).float(), q.to(q_dt),
+                 kt.to(q_dt), v.to(v_dt))
+        torch.testing.assert_close(got, fused_attn_sell_tiles_ref(
+            *tiles, n_live_block_rows=sell.n_live_block_rows), **tol)
+        assert not bool(got[[r_empty, r_masked]].any())
+        # kT as the transposed view the model passes (k.T, read through
+        # its strides): the same values in the same order, the same bits
+        k_rows = ops[5].T.contiguous()
+        assert not k_rows.T.is_contiguous()
+        assert torch.equal(got, fused_attn_sell_kernel(
+            *ops[:5], k_rows.T, ops[6], heavy_rows=sell.tile_heavy_rows))
 
 
 @pytest.mark.parametrize("kind", ["ell", "sell"])

@@ -4,7 +4,12 @@ K8) and ``fused_graph_attention``.
 On the CPU each wrapper runs its kernel's plain version (the two-sweep
 softmax); it is held to the JAX package's Pallas kernel run in interpret
 mode (the online softmax) on the same numpy inputs, for all three edge
-activations.  The front-end is held to ``repro.sparse
+activations.  K8 takes ``SellCS``'s row view, the Pallas K8 the live
+tiles and their 0/1 masks: its plain version is held to the Pallas kernel
+and to the port's tile-granular plain version on a pattern with a row
+above ``SELL_HEAVY_ROW_NNZ`` nonzeros, edge-less and padding rows and a
+stored zero (which must mask out), and the SELL entry point must build
+no tile data.  The front-end is held to ``repro.sparse
 .fused_graph_attention`` on every path.  Tolerance: rtol 1e-4, atol 1e-5
 (the reference's fused-attention tolerance: exp and f32 sums in another
 order).  Edge-less rows must come out exactly 0.  bf16 and f16 q, k and
@@ -13,6 +18,7 @@ reference's bf16 tolerance, in the reference's default output dtype,
 ``jnp.result_type(q, v)``, on every path.
 """
 import dataclasses
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +37,8 @@ from repro.kernels.fused.attention import fused_attn_sell_kernel as j_k8
 from repro.kernels.spmm.sell import sell_tile_blocks as j_tile_blocks
 from repro.sparse import SparseMatrix as JSparseMatrix
 from repro.sparse import fused_graph_attention as j_attention
-from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
+from repro_torch.core.formats import (SELL_HEAVY_ROW_NNZ, BlockCOO, BlockELL,
+                                      SellCS)
 from repro_torch.dispatch.dispatcher import clear_log, dispatch_log
 from repro_torch.kernels.fused.attention import (fused_attn_blockcoo_ref,
                                                  fused_attn_blockell,
@@ -41,6 +48,8 @@ from repro_torch.kernels.fused.attention import (fused_attn_blockcoo_ref,
                                                  fused_attn_elements,
                                                  fused_attn_sell,
                                                  fused_attn_sell_kernel,
+                                                 fused_attn_sell_operands,
+                                                 fused_attn_sell_rows_ref,
                                                  fused_attn_sell_slots_ref,
                                                  fused_attn_sell_tiles_ref)
 from repro_torch.kernels.spmm.sell import sell_tile_blocks
@@ -97,30 +106,96 @@ def test_k7_plain_matches_pallas_interpret(act, dk, d):
     assert not got[list(EMPTY_ROWS)].any()
 
 
+HEAVY_M, HEAVY_N, HEAVY_ROW = 61, 160, 7
+
+
+def _heavy_sell():
+    """A SELL packing (8 x 8 tiles) with a row above SELL_HEAVY_ROW_NNZ
+    nonzeros, the edge-less rows of ``_pattern``, padding rows, and one
+    stored value zeroed by hand in a row that keeps other nonzeros: the
+    numpy pattern without that entry, the JAX packing and the port's."""
+    a = _pattern(7, density=0.08, m=HEAVY_M, n=HEAVY_N)
+    a[HEAVY_ROW, :150] = 1.0 + np.arange(150, dtype=np.float32) / 150
+    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
+    jsell = JSellCS.from_dense(a, block=BLOCK)
+    assert int(sell.tile_row_nnz.max()) > SELL_HEAVY_ROW_NNZ
+    assert bool((sell.perm == HEAVY_M).any())  # padding rows
+    r = 11  # a row with several nonzeros loses its first to a stored zero
+    assert (a[r] != 0).sum() >= 2
+    slot = int(sell.tile_row_slot[int(sell.tile_out_gather[r])])
+    vals = sell.slot_vals.clone()
+    vals[slot] = 0.0
+    a[r, int(sell.slot_cols[slot])] = 0.0
+    return a, dataclasses.replace(sell, slot_vals=vals), jsell
+
+
 @pytest.mark.parametrize("act", ACTS)
 @pytest.mark.parametrize("dk,d", [(2, 16), (48, 12)])
 def test_k8_plain_matches_pallas_interpret(act, dk, d):
-    a = _pattern(dk + d, density=0.08)
-    q, k, v = _qkv(2, dk, d)
-    jsell = JSellCS.from_dense(a, block=BLOCK)
-    sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
-    bm, bn = BLOCK
-    n_pad = -(-N // bn) * bn
+    """K8's plain version over the row view against the Pallas K8 in
+    interpret mode and the port's tile-granular plain version, on the
+    same packing; edge-less, padding and all-masked rows exactly 0."""
+    a, sell, jsell = _heavy_sell()
+    q, k, v = _qkv(2, dk, d, m=HEAVY_M, n=HEAVY_N)
+    bn = BLOCK[1]
+    n_pad = -(-HEAVY_N // bn) * bn
     q_perm = np.concatenate([q, np.zeros((1, dk), np.float32)])[
         sell.perm.numpy()]
     kt, v = _pad(k.T, dk, n_pad), _pad(v, n_pad)
     mask = (sell_tile_blocks(sell) != 0).float()
-    np.testing.assert_array_equal(
-        mask.numpy(), np.asarray(j_tile_blocks(jsell) != 0))
+    want_mask = np.asarray(j_tile_blocks(jsell) != 0)
+    assert (mask.numpy() != want_mask).sum() == 1  # the stored zero
     kw = dict(n_live_block_rows=sell.n_live_block_rows, act=act, slope=0.2)
     want = j_k8(jsell.tile_rows, jsell.tile_cols, jnp.asarray(mask.numpy()),
                 jnp.asarray(q_perm), jnp.asarray(kt), jnp.asarray(v),
                 interpret=True, **kw)
+    tiles = fused_attn_sell_tiles_ref(sell.tile_rows, sell.tile_cols, mask,
+                                      _t(q_perm), _t(kt), _t(v), **kw)
     before = fused_attn_sell_kernel.launches
-    got = fused_attn_sell_kernel(sell.tile_rows, sell.tile_cols, mask,
-                                 _t(q_perm), _t(kt), _t(v), **kw)
-    assert fused_attn_sell_kernel.launches == before
+    got = fused_attn_sell_kernel(
+        *fused_attn_sell_operands(sell), _t(q_perm), _t(k.T.copy()),
+        _t(v[:HEAVY_N]), heavy_rows=sell.tile_heavy_rows, act=act, slope=0.2)
+    assert fused_attn_sell_kernel.launches == before  # plain on CPU
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), tiles.numpy(), **TOL)
+    np.testing.assert_array_equal(
+        got.numpy(), fused_attn_sell_rows_ref(
+            *fused_attn_sell_operands(sell), _t(q_perm), _t(k.T.copy()),
+            _t(v[:HEAVY_N]), act=act, slope=0.2).numpy())
+    no_edge = (sell.tile_row_nnz == 0).numpy()
+    assert no_edge.any() and not got[no_edge].any()
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_sell_entry_point_reads_no_tile_view(act, monkeypatch):
+    """``fused_attn_sell`` with the tile-view helpers patched to raise:
+    held to the reference's SELL entry point (Pallas in interpret mode) on
+    the pattern with a heavy row and a stored zero, and to the dense path
+    of the pattern without that entry."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the SELL attention path touched the tile view")
+
+    a, sell, jsell = _heavy_sell()
+    # the reference's packing, with the same value zeroed
+    slot = int(np.nonzero(np.asarray(jsell.slot_vals)
+                          != sell.slot_vals.numpy())[0][0])
+    jsell = dataclasses.replace(
+        jsell, slot_vals=jsell.slot_vals.at[slot].set(0.0))
+    q, k, v = _qkv(8, 2, 16, m=HEAVY_M, n=HEAVY_N)
+    for name, module in list(sys.modules.items()):
+        if name.startswith("repro_torch"):
+            for fn in ("sell_tile_blocks", "sell_row_ptr"):
+                if hasattr(module, fn):
+                    monkeypatch.setattr(module, fn, refuse)
+    got = fused_attn_sell(sell, _t(q), _t(k.T), _t(v), act=act)
+    want = j_attn_sell(jsell, jnp.asarray(q), jnp.asarray(k.T),
+                       jnp.asarray(v), act=act, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), fused_attn_dense(_t(a), _t(q), _t(k.T), _t(v),
+                                      act=act).numpy(), **TOL)
+    assert got.shape == (HEAVY_M, 16)
+    assert not got[list(EMPTY_ROWS)].any()
 
 
 @pytest.mark.parametrize("act", ACTS)
@@ -246,9 +321,11 @@ def test_attention_output_dtypes_follow_the_reference(q_dt, v_dt):
     sell = SellCS.from_dense(a, block=BLOCK, device="cpu")
     bn = BLOCK[1]
     q_perm = torch.cat([qp[:M], qp.new_zeros((1, 2))])[sell.perm]
-    ops8 = (sell.tile_rows, sell.tile_cols,
-            (sell_tile_blocks(sell) != 0).to(q_dt), q_perm,
-            kt[:, : -(-N // bn) * bn], vp[: -(-N // bn) * bn])
+    ops8 = (*fused_attn_sell_operands(sell), q_perm, kt[:, :N].contiguous(),
+            vp[:N])
+    tiles8 = (sell.tile_rows, sell.tile_cols,
+              (sell_tile_blocks(sell) != 0).to(q_dt), q_perm,
+              kt[:, : -(-N // bn) * bn], vp[: -(-N // bn) * bn])
     kw8 = dict(n_live_block_rows=sell.n_live_block_rows)
     coo = BlockCOO.from_dense(a, *BLOCK, device="cpu")
     rows, cols = (_t(x.astype(np.int32)) for x in np.nonzero(a))
@@ -256,8 +333,9 @@ def test_attention_output_dtypes_follow_the_reference(q_dt, v_dt):
     outs = {
         "K7": fused_attn_blockell_kernel(*ops7),
         "K7 plain": fused_attn_blockell_ref(*ops7),
-        "K8": fused_attn_sell_kernel(*ops8, **kw8),
-        "K8 plain": fused_attn_sell_tiles_ref(*ops8, **kw8),
+        "K8": fused_attn_sell_kernel(*ops8, heavy_rows=sell.tile_heavy_rows),
+        "K8 plain": fused_attn_sell_rows_ref(*ops8),
+        "K8 tiles": fused_attn_sell_tiles_ref(*tiles8, **kw8),
         "sell": fused_attn_sell(sell, qp[:M], kt[:, :N], vp[:N]),
         "coo": fused_attn_blockcoo_ref(coo, qp, kt, vp),
         "elements": fused_attn_elements(rows, cols, vals, qp[:M], kt[:, :N],

@@ -47,7 +47,7 @@ from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
 from repro_torch.kernels.spmm.kernel import spmm_blockell_kernel
 from repro_torch.kernels.spmm.ops import spmm_blockell
 from repro_torch.kernels.spmm.ref import spmm_blockell_ref
-from repro_torch.kernels.spmm.sell import (sell_row_operands, sell_row_ptr,
+from repro_torch.kernels.spmm.sell import (sell_row_operands,
                                            sell_tile_blocks,
                                            spmm_sell_blocked,
                                            spmm_sell_kernel,
@@ -201,15 +201,6 @@ def test_epilogue_operands_must_match_spec():
     with pytest.raises(ValueError, match="disagrees"):
         spmm_blockell_epilogue_kernel(ell.indices, ell.blocks, hp, None,
                                       None, epi=epi)
-
-
-def test_sell_row_ptr_requires_ascending_rows():
-    rows = torch.tensor([0, 0, 1, 3, 3], dtype=torch.int32)
-    assert sell_row_ptr(rows, 4).tolist() == [0, 2, 3, 3, 5]
-    with pytest.raises(ValueError, match="non-decreasing"):
-        sell_row_ptr(torch.tensor([0, 2, 1], dtype=torch.int32), 3)
-    with pytest.raises(ValueError, match="non-decreasing"):
-        sell_row_ptr(rows, 3)
 
 
 # The nonzero-granular plain versions of K2/K6 (the kernels' own operands:
