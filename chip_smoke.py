@@ -97,7 +97,25 @@ Phases, each of which must pass or the script exits non-zero:
      mask at (i), ``is_causal`` at (ii); printed here, never called by the
      port), with its TFLOP/s, its share of the bound and its ratio to
      SDPA.
-  5. A JSON line of the kernels, the card line, and the final JSON line.
+  5. Training, on each graph of phase 3 right after its serving (the
+     same packing): GCN and GAT, fused, with seeded weights, planted
+     labels and ``repro_torch.train.gnn``'s step (full-batch NLL, plain
+     SGD at ``TRAIN_LR``).  One step whose gradients are held, parameter
+     by parameter, to a dense f32 autograd oracle on the card (TF32 off;
+     GAT's oracle chunked as ``gat_oracle`` is, its peak memory printed),
+     then ``TRAIN_STEPS`` timed steps (median step time with a sync,
+     nodes/s, the peak device memory of a step) and one profiled step.
+     The loss must fall (but on ``LOSS_FLAT``), and each step's launches
+     are asserted (``TRAIN_LAUNCHES``; they join the kernel rows'
+     launches).  Then the
+     backward's kernels at their own shapes, each held to its plain
+     version beside its bound and its library call: the SDDMM (K3 on (a),
+     K4 on (b)) at K = 128 (dα = ḡ Vᵀ) against ``sampled_addmm``, the
+     SpMM (K1, K2) at D = 2 (GAT's dq) against ``torch.sparse.mm``, and
+     the plain dH = Aᵀ ḡ at D = 128 on the transposed operand beside
+     ``torch.sparse.mm`` on a CSR of Aᵀ.
+  6. A JSON line of the backward shapes, a JSON line of the kernels, the
+     card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -160,6 +178,42 @@ ATTN_BF16_TOL = dict(rtol=1e-2, atol=2e-3)
 ATTN_ATOL = 1e-6
 REQUESTS = 8
 TURNS = 5  # fused and fuse=False GAT requests timed in turns
+TRAIN_STEPS = 5  # timed SGD steps after the step held to the oracle
+TRAIN_LR = 0.05  # repro_torch.train.gnn's default
+# phase 5: each parameter's first-step gradient vs the dense f32 autograd
+# oracle, |got - want| <= ORACLE_RTOL * max|want| + GRAD_ATOL: the same
+# f32 sums over up to 16384 terms as the logits, the backward's sums (dH,
+# dq, dk, dV over a node's edges; dW over all nodes) taken in another
+# order, and for GAT the softmax's exp.  GRAD_ATOL is the fused-attention
+# rule's own residual: it takes rowdot_i = ḡ_i · out_i from the forward's
+# output (as the reference does), so sum_j de_ij is ḡ_i · (sum_j α_ij v_j
+# - out_i), f32 rounding, where it is 0 exactly; ds_src and ds_dst sum it
+# into d a_src and d a_dst.  On (a)'s last layer no row's scores mix
+# signs, so the true d a_src is 0, and the port's is 5.0e-11 (H100;
+# ``python -m repro_torch.train.precision`` holds both to an f64 oracle);
+# GRAD_ATOL is 10x that.  Besides, the tolerance of a gradient above
+# GRAD_ATOL may be at most GRAD_TOL_SHARE of its max|want|, so a zeroed
+# gradient fails; one at or below GRAD_ATOL is zero at f32 resolution,
+# and the port's must be too
+GRAD_ATOL = 5e-10
+GRAD_TOL_SHARE = 1e-2
+# graph path and model whose loss need not fall over the steps: (a)'s
+# uniform neighbourhoods average each node's own features away, so GCN
+# cannot learn the planted labels there and a step moves its f32 mean NLL
+# by ≈ 2e-9, below one f32 ulp of ln 16 (2.4e-7); its gradients are held
+# to the oracle all the same
+LOSS_FLAT = {("ell", "gcn")}
+# kernel launches one training step makes, per graph path and model: the
+# forward's (K5 x2 + K1, K6 x2 + K2, K7 / K8 x3), GAT's backward K3 / K4
+# twice a layer (the score recompute and dα) and K1 / K2 once (dq); every
+# dH, dk and dV runs on the transposed operand, plain PyTorch, and A's
+# values take no gradient, so no dA is sampled
+TRAIN_LAUNCHES = {
+    ("ell", "gcn"): {"K5": 2, "K1": 1},
+    ("sell", "gcn"): {"K6": 2, "K2": 1},
+    ("ell", "gat"): {"K7": 3, "K3": 6, "K1": 3},
+    ("sell", "gat"): {"K8": 3, "K4": 6, "K2": 3},
+}
 SEED = 0
 N_NODES = 16384
 S_LOCAL = 32768   # phase 4 (i): the prefill_32k length, local-layer window
@@ -233,7 +287,8 @@ class Port:
         from repro_torch.kernels.spmm import kernel, ref, sell
         from repro_torch.models import gnn
         from repro_torch.serve import engine
-        from repro_torch.sparse import ops, paths
+        from repro_torch.sparse import autodiff, ops, paths
+        from repro_torch.train import gnn as train
 
         self.cfg = paper_gnn.CONFIG
         self.lm_cfg = gemma3_4b.CONFIG
@@ -251,8 +306,9 @@ class Port:
         self.ptxas_usage = bsattn_tiles.ptxas_usage
         self.spill_bytes = bsattn_tiles.spill_bytes
         self.Epilogue = Epilogue
-        self.gnn, self.engine = gnn, engine
+        self.gnn, self.engine, self.train = gnn, engine, train
         self.ops, self.paths, self.dispatcher = ops, paths, dispatcher
+        self.autodiff = autodiff
         self.wrappers = {
             "K1": kernel.spmm_blockell_kernel,
             "K2": sell.spmm_sell_kernel,
@@ -814,6 +870,13 @@ def profile_request(torch, eng, x, label):
         wall = (time.perf_counter() - t0) * 1e3
     log(f"graph ({label}) profiled request: calls of the tile-view helpers "
         f"{calls}")
+    log_device_time(prof, wall, f"graph ({label}) profile of one request")
+    return calls
+
+
+def log_device_time(prof, wall, what):
+    """The device's busy share of ``wall`` ms and its largest items, from
+    a ``torch.profiler`` run."""
     dev_ms = {}
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
@@ -823,16 +886,14 @@ def profile_request(torch, eng, x, label):
             if t > 0:
                 dev_ms[ev.key] = t / 1e3
     if not dev_ms:
-        log(f"graph ({label}) profile: the profiler saw no device time "
-            "(device busy share not measured)")
-        return calls
+        log(f"{what}: the profiler saw no device time (device busy share "
+            "not measured)")
+        return
     busy = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
-    log(f"graph ({label}) profile of one request: wall {wall:.3f} ms under "
-        f"the profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f} "
-        "%); by device time: "
+    log(f"{what}: wall {wall:.3f} ms under the profiler, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} %); by device time: "
         + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
-    return calls
 
 
 def expected(port, per_call, calls):
@@ -1206,6 +1267,249 @@ def gat_phase(torch, port, graph, pattern, label, want_path, xs):
     return {name: row}
 
 
+def oracle_grads(torch, port, kind, a_dense, pattern, params, x, labels):
+    """Loss and parameter gradients of the dense f32 oracle (TF32 off):
+    ``oracle_logits`` for GCN, ``gat_oracle`` (chunked) for GAT, through
+    torch.autograd on the card; returns them with the oracle's peak device
+    memory beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    own = {k: [p.detach().clone().requires_grad_(True) for p in v]
+           for k, v in params.items()}
+    logits = oracle_logits(torch, a_dense, own, x) if kind == "gcn" \
+        else gat_oracle(torch, pattern, own, x)
+    loss = torch.nn.functional.cross_entropy(logits, labels)
+    grads = torch.autograd.grad(
+        loss, [p for _, p in port.train.named_parameters(own)])
+    torch.cuda.synchronize()
+    return loss.item(), grads, torch.cuda.max_memory_allocated() - base
+
+
+def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
+    """Phase 5 on one graph: GCN and GAT training steps through
+    ``repro_torch.train.gnn``; returns the kernel launches of the counted
+    steps."""
+    dev = torch.device(DEVICE)
+    n, cfg = graph.n_nodes, port.cfg
+    x = torch.from_numpy(x_np).to(dev)
+    labels = torch.from_numpy(port.train.planted_labels(n, cfg.n_classes)) \
+        .to(dev)
+    a_dense = torch.from_numpy(normalized_dense(np, adj)).to(dev)
+    pattern = a_dense != 0
+    launches = dict.fromkeys(port.wrappers, 0)
+    for kind in ("gcn", "gat"):
+        what = f"graph ({label}) {kind.upper()} training"
+        per_step = TRAIN_LAUNCHES[want_path, kind]
+        params = port.train.init_params(kind, cfg, seed=SEED, device=DEVICE)
+        kw = dict(kind=kind)
+        # one step held to the dense oracle
+        torch.cuda.synchronize()
+        port.reset_counts()
+        loss0, acc0, grads = port.train.loss_and_grads(params, graph, x,
+                                                       labels, **kw)
+        torch.cuda.synchronize()
+        counts = port.counts()
+        if counts != expected(port, per_step, 1):
+            raise AssertionError(f"{what}: launches {counts} in the first "
+                                 f"step, expected {expected(port, per_step, 1)}")
+        want_loss, want_grads, oracle_peak = oracle_grads(
+            torch, port, kind, a_dense, pattern, params, x, labels)
+        errs, bad = [], []
+        for (name, got), want in zip(port.train.named_parameters(grads),
+                                     want_grads):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            tol = ORACLE_RTOL * scale + GRAD_ATOL
+            zero = scale <= GRAD_ATOL
+            errs.append(f"{name} {err:.2e} (max|want| {scale:.3e}"
+                        + (", zero at f32 resolution)" if zero else ")"))
+            if got.shape != want.shape or not bool(torch.isfinite(got).all())\
+                    or not err <= tol:
+                bad.append(f"d{name} max_abs_err {err:.3e} > {tol:.3e}")
+            if not zero and tol > GRAD_TOL_SHARE * scale:
+                bad.append(f"d{name}: tol {tol:.3e} is over {GRAD_TOL_SHARE}"
+                           f" of max|want| {scale:.3e}")
+        log(f"{what}: step 1 launches {counts}; loss {float(loss0):.8f} "
+            f"(oracle {want_loss:.8f}), acc {float(acc0):.4f}; gradients vs "
+            f"the dense f32 autograd oracle (TF32 off; each within "
+            f"{ORACLE_RTOL} x max|want| + {GRAD_ATOL}): " + ", ".join(errs)
+            + f"; the oracle's peak device memory {oracle_peak / 2**30:.2f} "
+            "GiB")
+        if bad:
+            raise AssertionError(f"{what}: off the dense oracle: "
+                                 + ", ".join(bad))
+        if abs(float(loss0) - want_loss) > ORACLE_RTOL * abs(want_loss):
+            raise AssertionError(f"{what}: loss {float(loss0)} vs the "
+                                 f"oracle's {want_loss}")
+        port.train.sgd_update(params, grads, TRAIN_LR)
+        del grads, want_grads
+        for k, v in counts.items():
+            launches[k] += v
+
+        # the timed steps, each its own peak
+        losses, times, peak = [float(loss0)], [], 0
+        port.reset_counts()
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss, _ = port.train.train_step(params, graph, x, labels,
+                                            lr=TRAIN_LR, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            losses.append(float(loss))
+        counts = port.counts()
+        if counts != expected(port, per_step, TRAIN_STEPS):
+            raise AssertionError(
+                f"{what}: launches {counts} over {TRAIN_STEPS} steps, "
+                f"expected {expected(port, per_step, TRAIN_STEPS)}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{what}: a loss is not finite: {losses}")
+        if (want_path, kind) not in LOSS_FLAT and not losses[-1] < losses[0]:
+            raise AssertionError(f"{what}: the loss did not fall: {losses}")
+        for k, v in counts.items():
+            launches[k] += v
+        med = statistics.median(times)
+        log(f"{what}: {TRAIN_STEPS} steps, launches {counts}; step median "
+            f"{med:.3f} ms (all: {', '.join(f'{t:.3f}' for t in times)}); "
+            f"{n / med * 1e3:.0f} nodes/s; peak device memory of a step "
+            f"beyond its inputs {peak / 2**30:.2f} GiB; loss "
+            + " -> ".join(f"{v:.10f}" for v in losses))
+        profile_step(torch, port, lambda: port.train.train_step(
+            params, graph, x, labels, lr=TRAIN_LR, **kw), per_step, what)
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(torch, port, step, per_step, what):
+    """One more training step under ``torch.profiler`` (its launches
+    checked, not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    port.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if port.counts() != expected(port, per_step, 1):
+        raise AssertionError(f"{what}: the profiled step launched "
+                             f"{port.counts()}")
+    log_device_time(prof, wall, f"{what}, profile of one step")
+
+
+def transposed_csr(torch, graph):
+    """Aᵀ as a torch CSR tensor, for the ``torch.sparse.mm`` yardstick."""
+    rows, cols, vals = graph.adj.form("csr")
+    n = graph.n_nodes
+    return torch.sparse_coo_tensor(
+        torch.stack([cols.long(), rows.long()]), vals,
+        (n, n)).coalesce().to_sparse_csr()
+
+
+def backward_rows(torch, port, graph, want_path):
+    """The kernels at the shapes a training step gives them, each held to
+    its plain version beside its bound and its library call: the SDDMM
+    (K3 / K4) at K = 128 (dα = ḡ Vᵀ) and the SpMM (K1 / K2) at D = 2 (dq);
+    and the plain dH = Aᵀ ḡ at D = 128 beside ``torch.sparse.mm`` on a CSR
+    of Aᵀ.  Returns the rows by name."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n, k, d = graph.n_nodes, port.cfg.hidden, 2
+    paths = port.paths
+    a_lib = library_csr(torch, graph)
+    b = torch.randn(n, k, device=dev, generator=gen)
+    c = torch.randn(n, k, device=dev, generator=gen).T.contiguous()
+    h2 = torch.randn(n, d, device=dev, generator=gen)
+    sampled = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+        a_lib, b, c, beta=0.0)
+    rows = {}
+    if want_path == "ell":
+        ell = graph.adj.form("ell")
+        coo = paths.ell_to_coo(ell)
+        bp = paths.pad_rows(b, coo.shape[0])
+        cp = paths.pad_cols(c, coo.shape[1]).contiguous()
+        cells = coo.nnzb * coo.bm * coo.bn  # every cell of every tile
+        bare = (coo.rows, coo.cols, None, bp, cp)
+        kw = dict(block=(coo.bm, coo.bn), out_dtype=torch.float32)
+        rows["K3"] = measure(
+            torch, "K3 at K=128 (dα = ḡ Vᵀ)",
+            lambda: port.wrappers["K3"](*bare, **kw),
+            lambda: port.sddmm_ref.sddmm_blockcoo_ref(*bare, **kw), sampled,
+            nbytes_of(coo.rows, coo.cols, bp, cp) + cells * 4,
+            2 * k * cells, f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} "
+            f"K={k}; {cells} sampled entries (no mask); library: "
+            "sampled_addmm")
+        hp = paths.pad_rows(h2, ell.shape[1])
+        args = (ell.indices, ell.blocks, hp)
+        nnz = int((ell.blocks != 0).sum())
+        rows["K1"] = measure(
+            torch, "K1 at D=2 (dq)", lambda: port.wrappers["K1"](*args),
+            lambda: port.ref.spmm_blockell_ref(*args),
+            lambda: torch.sparse.mm(a_lib, h2),
+            nbytes_of(*args) + ell.shape[0] * d * 4, 2 * nnz * d,
+            f"nbr={ell.n_block_rows} W={ell.ell_width} D={d}; {nnz} "
+            "nonzeros; library: torch.sparse.mm")
+        del bare, bp, cp, args, hp
+    else:
+        sell = graph.adj.form("sell")
+        args = (*port.sddmm_sell.sddmm_sell_operands(sell), b, c)
+        row_slot, row_nnz, perm, slot_cols = args[:4]
+        nnz = int(row_nnz.sum())
+        rows["K4"] = measure(
+            torch, "K4 at K=128 (dα = ḡ Vᵀ)",
+            lambda: port.wrappers["K4"](*args),
+            lambda: port.sddmm_sell.sddmm_sell_slots_ref(*args), sampled,
+            nbytes_of(row_slot, row_nnz, perm, b, c)
+            + nnz * slot_cols.element_size() + sell.n_slots * 4,
+            2 * k * nnz, f"rows={row_slot.shape[0]} nonzeros={nnz} K={k}; "
+            "library: sampled_addmm")
+        ops = (*port.sell.sell_row_operands(sell), h2)
+        heavy = sell.tile_heavy_rows
+        rows["K2"] = measure(
+            torch, "K2 at D=2 (dq)",
+            lambda: port.wrappers["K2"](*ops, heavy_rows=heavy),
+            lambda: port.sell.spmm_sell_slots_ref(*ops),
+            lambda: torch.sparse.mm(a_lib, h2),
+            nbytes_of(ops[0], ops[1], heavy, h2) + nnz * (
+                ops[2].element_size() + ops[3].element_size())
+            + ops[0].shape[0] * d * 4, 2 * nnz * d,
+            f"rows={ops[0].shape[0]} nonzeros={nnz} D={d}; library: "
+            "torch.sparse.mm")
+        del args, ops
+    # dH = Aᵀ ḡ, plain PyTorch on the transposed operand (Block-COO on the
+    # ell path, the csr slot triplet on the sell path), beside the library
+    at = graph.adj.T
+    form = "coo" if want_path == "ell" else "csr"
+    g = torch.randn(n, k, device=dev, generator=gen)
+    run = lambda: port.autodiff.spmm_exec(want_path, at, g)  # noqa: E731
+    lib_t = transposed_csr(torch, graph)
+    lib = lambda: torch.sparse.mm(lib_t, g)  # noqa: E731
+    err = float((run() - lib()).abs().max())
+    tol = oracle_tol(lib())
+    if err > tol:
+        raise AssertionError(f"dH = Aᵀ ḡ off torch.sparse.mm: {err:.3e}")
+    topo = at.form(form)
+    moved = nbytes_of(topo.blocks) if form == "coo" \
+        else nbytes_of(*topo)
+    dh_bound = bound(moved + nbytes_of(g) + n * k * 4,
+                     2 * graph.stats.nnz * k)[0]
+    rows["dH"] = dict(ms=time_ms(torch, run), library_ms=time_ms(torch, lib),
+                      bound_ms=dh_bound, max_abs_err=err)
+    log(f"dH = Aᵀ ḡ at D={k} on the transposed {form} operand (plain "
+        f"PyTorch, no kernel): {rows['dH']['ms']:.4f} ms | library "
+        f"torch.sparse.mm on a CSR of Aᵀ {rows['dH']['library_ms']:.4f} ms "
+        f"| bound {dh_bound:.4f} ms (bytes: the topology once, ḡ and dH) | "
+        f"max_abs_err {err:.3e}")
+    return rows
+
+
 def serve_graph(torch, np, port, label, adj, want_path, expect):
     """Phase 3 for one graph: pack it once, then GCN serving, the SDDMM
     entry point and GAT serving on it; returns the kernel rows."""
@@ -1231,7 +1535,18 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     rows.update(gat_phase(torch, port, graph, pattern, label, want_path, xs))
     peak = max(peak, torch.cuda.max_memory_allocated())
     log(f"graph ({label}) peak device memory {peak / 2**30:.2f} GiB")
-    return rows
+    del pattern
+    torch.cuda.empty_cache()
+    # phase 5 on the same graph; its launches join the kernel rows
+    for name, count in train_phase(torch, np, port, graph, adj, xs[0], label,
+                                   want_path).items():
+        if count and name not in rows:
+            raise AssertionError(f"training on ({label}) launched {name}, "
+                                 "a kernel of the other path")
+        if count:
+            rows[name]["launches"] += count
+    backward = backward_rows(torch, port, graph, want_path)
+    return rows, backward
 
 
 def live_pairs(np, ell, val, block_q, block_kv, window) -> int:
@@ -1538,15 +1853,17 @@ def main() -> int:
     n = N_NODES
     rng = np.random.default_rng(SEED)
     adj_a = (rng.random((n, n), dtype=np.float32) < 0.1).astype(np.float32)
-    rows = serve_graph(torch, np, port, "a: uniform density 0.1", adj_a,
-                       "ell", {"K1": 1, "K2": 0, "K5": 2, "K6": 0})
+    rows, backward_a = serve_graph(
+        torch, np, port, "a: uniform density 0.1", adj_a, "ell",
+        {"K1": 1, "K2": 0, "K5": 2, "K6": 0})
     del adj_a
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     adj_b = port.random_graph(n, 16, seed=1)
-    rows.update(serve_graph(torch, np, port,
-                            f"b: random_graph({n}, 16, seed=1)", adj_b,
-                            "sell", {"K1": 0, "K2": 1, "K5": 0, "K6": 2}))
+    rows_b, backward_b = serve_graph(
+        torch, np, port, f"b: random_graph({n}, 16, seed=1)", adj_b, "sell",
+        {"K1": 0, "K2": 1, "K5": 0, "K6": 2})
+    rows.update(rows_b)
     del adj_b
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1562,6 +1879,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(json.dumps({"backward_shapes": {"a": backward_a,
+                                          "b": backward_b}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -82,6 +82,22 @@ def apply_act(z: torch.Tensor, act: str, negative_slope: float):
     raise ValueError(f"unknown epilogue activation {act!r}")
 
 
+def act_grad_from_out(out: torch.Tensor, act: str, negative_slope: float):
+    """d act/dz evaluated from the *post*-activation value (or from z
+    itself: the fused-attention backward passes its raw scores).
+
+    Valid because relu and leaky_relu (slope > 0) keep the sign of z:
+    out > 0 <=> z > 0 and out >= 0 <=> z >= 0.
+    """
+    if act == "identity":
+        return torch.ones_like(out)
+    if act == "relu":
+        return (out > 0).to(out.dtype)
+    if act == "leaky_relu":
+        return torch.where(out >= 0, 1.0, negative_slope).to(out.dtype)
+    raise ValueError(f"unknown epilogue activation {act!r}")
+
+
 def apply_epilogue(y: torch.Tensor, epi: Optional[Epilogue], bias=None,
                    residual=None) -> torch.Tensor:
     """Plain application of the epilogue to a [M, D] product."""

@@ -191,10 +191,12 @@ def gat_params_from_numpy(params: Dict, device="cuda") -> Dict:
 
 
 def _segment_softmax(scores, row_ids, n_rows: int):
-    """Softmax of ``scores`` within each row's edges (``row_ids``)."""
+    """Softmax of ``scores`` within each row's edges (``row_ids``).  The
+    row max is a shift the softmax does not depend on, so it is detached:
+    ``scatter_reduce("amax")`` would split its gradient among ties."""
     idx = row_ids.long()
-    mx = scores.new_full((n_rows,), -float("inf")).scatter_reduce(
-        0, idx, scores, "amax")
+    mx = scores.detach().new_full((n_rows,), -float("inf")).scatter_reduce(
+        0, idx, scores.detach(), "amax")
     ex = torch.exp(scores - mx[idx])
     den = scores.new_zeros((n_rows,)).index_add_(0, idx, ex)
     return ex / den[idx].clamp_min(1e-12)

@@ -1,10 +1,37 @@
-"""Execution of one planned path: SpMM with or without a fused epilogue,
-SDDMM, and the fused graph attention (the forward half of
-``repro.sparse.autodiff``).
+"""The SpMM <-> SDDMM backward rules as ``torch.autograd.Function``s, and
+the execution of one planned path they share with the forward (the port
+of ``repro.sparse.autodiff``).
 
-Serving takes no gradient, so there is no ``torch.autograd.Function``
-here yet; the training slice adds the SpMM <-> SDDMM backward rules,
-which call the same ``sample_exec`` (kernels K3 and K4) in the backward.
+SpMM and SDDMM are transpose/backward duals (Gale et al., *Sparse GPU
+Kernels for Deep Learning*): for ``Y = A @ H``,
+
+  * ``dH = Aᵀ @ ḡ``            — another SpMM, on the transposed operand;
+  * ``dA = pattern(A) ⊙ (ḡ Hᵀ)`` — SDDMM sampled on A's nonzero topology;
+
+and for ``S = A ⊙ (B C)``,
+
+  * ``dA = ḡ ⊙ (B C)``          — elementwise on the stored values;
+  * ``dB = (A ⊙ ḡ) @ Cᵀ``       — an SpMM with the cotangent-weighted A;
+  * ``dC = ((A ⊙ ḡ)ᵀ @ B)ᵀ``    — the transposed SpMM.
+
+Each rule runs through the path the forward ran (ell / sell / csr /
+dense), so on the card the backward launches the same kernels: K3 / K4
+for every sampled product, K1 / K2 for every SpMM on A's own form.  The
+transposed ell operand is Block-COO and runs ``paths.spmm_coo``, the
+transposed sell operand its slot triplet as an element form, both plain
+PyTorch as in the reference.  Each rule that runs records a plan with
+``policy="vjp"`` in the dispatch log.
+
+Gradient semantics: each Function takes the *values tensor of the form
+the path reads* as an explicit input beside the path and the matrix, so a
+gradient reaches ``v`` in ``A.with_data(v)``; structural zeros (padding
+slots, element zeros) receive zero gradient, and the integer topology is
+not an input.  A rule whose output no input needs is skipped
+(``ctx.needs_input_grad``): ``jax.jit`` removes those rules from the
+reference's traced step as dead code, so the log records only the rules
+that ran (the reference records every rule when it runs unjitted).  The
+backward works on tensors it owns and updates them in place where that
+saves a copy of an E-length array.
 """
 from __future__ import annotations
 
@@ -12,14 +39,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dispatch.dispatcher import Plan, record_plan
 from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
                                          PATH_SELL)
 from repro_torch.kernels.fused import attention as fat
-from repro_torch.kernels.fused.epilogue import Epilogue, apply_epilogue
+from repro_torch.kernels.fused.epilogue import (Epilogue, act_grad_from_out,
+                                                apply_act, apply_epilogue)
 from repro_torch.kernels.fused.spmm import (spmm_blockell_fused,
                                             spmm_sell_fused)
 from repro_torch.sparse import paths
-from repro_torch.sparse.matrix import SparseMatrix, values_of
+from repro_torch.sparse.matrix import SparseMatrix, single_form, values_of
 
 
 def form_read_by(a: SparseMatrix, path: str) -> str:
@@ -29,8 +58,17 @@ def form_read_by(a: SparseMatrix, path: str) -> str:
     if path == PATH_ELL:
         return "ell" if a.has_form("ell") else "coo"
     if path == PATH_SELL:
-        return "sell"
+        # the transpose of a sell operand carries the slot triplet as an
+        # element form; the sell path falls back to it (see spmm_exec)
+        return "sell" if a.has_form("sell") else "csr"
     return a.format  # the dense path densifies the primary form
+
+
+def read_values(a: SparseMatrix, path: str) -> torch.Tensor:
+    """The values tensor of the form ``path`` reads: the input through
+    which a Function's gradient reaches A."""
+    name = form_read_by(a, path)
+    return values_of(name, a.form(name))
 
 
 def spmm_exec(path: str, a: SparseMatrix, h: torch.Tensor) -> torch.Tensor:
@@ -42,9 +80,9 @@ def spmm_exec(path: str, a: SparseMatrix, h: torch.Tensor) -> torch.Tensor:
             return paths.spmm_ell(ell, paths.pad_rows(h, ell.shape[1]))[:m]
         coo = a.form("coo")
         return paths.spmm_coo(coo, paths.pad_rows(h, coo.shape[1]))[:m]
-    if path == PATH_SELL:
+    if path == PATH_SELL and a.has_form("sell"):
         return paths.spmm_sell(a.form("sell"), h)
-    if path == PATH_CSR:
+    if path in (PATH_CSR, PATH_SELL):  # sell: a transposed sell operand
         r, c, v = a.form("csr")
         return paths.spmm_elements(r, c, v, h, m)
     if path == PATH_DENSE:
@@ -84,7 +122,7 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
     """
     form_name = form_read_by(a, path)
     form = a.form(form_name)
-    if path == PATH_CSR:
+    if path == PATH_CSR or (path == PATH_SELL and form_name == "csr"):
         return paths.sddmm_element_dots(form[0], form[1], b, c)
     if path == PATH_SELL:
         # K4 returns f32, as the reference's tile route does; cast once to
@@ -163,3 +201,279 @@ def fused_attention_exec(path: str, a: SparseMatrix, q: torch.Tensor,
         return fat.fused_attn_dense(a.densify(), q, kt, v, act=act,
                                     slope=slope)
     raise ValueError(f"unknown fused-attention path {path!r}")
+
+
+# ---------------------------------------------------------------------------
+# Helpers of the backward rules
+# ---------------------------------------------------------------------------
+
+
+def _mask_structural(vals: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """Zero the gradient at structural zeros (padding, pruned entries)."""
+    return torch.where(vals != 0, grad, 0.0).to(vals.dtype)
+
+
+def _record_vjp(op: str, path: str, reason: str, a: SparseMatrix) -> None:
+    record_plan(Plan(op=op, path=path, policy="vjp", reason=reason,
+                     use_kernel=a.device.type == "cuda"))
+
+
+def _form_broadcast_rows(a: SparseMatrix, form_name: str,
+                         vec: torch.Tensor) -> torch.Tensor:
+    """Broadcast a per-logical-row vector onto a form's values layout."""
+    form = a.form(form_name)
+    if form_name == "csr":
+        return vec[form[0].long()]
+    if form_name == "sell":
+        return vec[form.slot_rows.long()]
+    by_row = paths.pad_rows(vec, form.shape[0]).reshape(-1, form.bm)
+    if form_name == "ell":
+        return by_row[:, None, :, None]  # -> [nbr, W, bm, bn]
+    return by_row[form.rows.long()][:, :, None]  # coo: [nnzb, bm, 1]
+
+
+def _form_row_softmax(a: SparseMatrix, form_name: str, e: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Row softmax of masked scores ``e`` laid out like one form's values.
+
+    ``e`` is f32 with masked (structural-zero) entries already at
+    ``NEG_INF``; the result carries exact zeros there.  Matches
+    ``models.gnn._segment_softmax`` (the same ``EPS`` denominator guard).
+    ``e`` is consumed: the exponentials are taken in its storage.
+    """
+    form = a.form(form_name)
+    if form_name in ("csr", "sell"):
+        rows = (form[0] if form_name == "csr" else form.slot_rows).long()
+        m = a.shape[0]
+        mx = e.new_full((m,), fat.NEG_INF).scatter_reduce(0, rows, e, "amax")
+        ex = e.sub_(mx[rows]).exp_().mul_(mask)
+        den = ex.new_zeros((m,)).index_add_(0, rows, ex)
+        return ex.div_(den[rows].clamp_min(fat.EPS))
+    if form_name == "ell":
+        mx = e.amax(dim=(1, 3))  # [nbr, bm]
+        ex = e.sub_(mx[:, None, :, None]).exp_().mul_(mask)
+        den = ex.sum(dim=(1, 3)).clamp_min(fat.EPS)
+        return ex.div_(den[:, None, :, None])
+    # coo: segments over the block-row coordinate
+    rows = form.rows.long()
+    nbr = form.shape[0] // form.bm
+    mx = e.new_full((nbr, form.bm), fat.NEG_INF).scatter_reduce(
+        0, rows[:, None].expand(-1, form.bm), e.amax(dim=2), "amax")
+    ex = e.sub_(mx[rows][:, :, None]).exp_().mul_(mask)
+    den = ex.new_zeros((nbr, form.bm)).index_add_(0, rows, ex.sum(dim=2))
+    return ex.div_(den[rows][:, :, None].clamp_min(fat.EPS))
+
+
+# ---------------------------------------------------------------------------
+# SpMM: Y = A @ H
+# ---------------------------------------------------------------------------
+
+
+class SpMM(torch.autograd.Function):
+    """``Y = A @ H`` on one planned path; inputs ``(path, a, vals, h)``
+    with ``vals = read_values(a, path)``.
+
+    Backward: ``dH = Aᵀ @ ḡ`` (an SpMM on the transpose) and ``dA =
+    pattern(A) ⊙ (ḡ Hᵀ)`` (an SDDMM, K3 / K4 on the card), each only
+    where its input needs it."""
+
+    @staticmethod
+    def forward(ctx, path: str, a: SparseMatrix, vals: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+        ctx.path, ctx.a = path, a
+        ctx.save_for_backward(vals, h)
+        return spmm_exec(path, a, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, h = ctx.saved_tensors
+        path, a = ctx.path, ctx.a
+        g = g.contiguous()
+        dvals = dh = None
+        if ctx.needs_input_grad[3]:
+            dh = spmm_exec(path, a.T, g).to(h.dtype)
+            _record_vjp("spmm", path, "vjp: dH = Aᵀ @ ḡ (spmm backward)", a)
+        if ctx.needs_input_grad[2]:
+            raw = sample_exec(path, a, g, h.T)
+            _record_vjp("sddmm", path, "vjp: dA = pattern(A) ⊙ (ḡ @ Hᵀ) "
+                        "(spmm backward is sddmm)", a)
+            dvals = _mask_structural(vals, raw)
+        return None, None, dvals, dh
+
+
+# ---------------------------------------------------------------------------
+# SDDMM: S = A ⊙ (B @ C)  (values in the layout of the form the path reads)
+# ---------------------------------------------------------------------------
+
+
+class SDDMMValues(torch.autograd.Function):
+    """``S = A ⊙ (B @ C)`` at A's stored entries, in the layout of the
+    form ``path`` reads; inputs ``(path, a, vals, b, c)``.
+
+    Where A's values need a gradient the forward keeps the raw dots
+    (``dA = ḡ ⊙ (B C)``) and composes values × dots; otherwise it is the
+    path's one product (one K3 launch on the ell path).  Backward: ``dB``
+    and ``dC`` as SpMMs on ``A ⊙ ḡ`` and on its transpose."""
+
+    @staticmethod
+    def forward(ctx, path: str, a: SparseMatrix, vals: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        ctx.path, ctx.a = path, a
+        raw = None
+        if ctx.needs_input_grad[2]:
+            raw = sample_exec(path, a, b, c)
+            out = (vals.float() * raw.float()).to(
+                torch.promote_types(vals.dtype, b.dtype))
+        else:
+            out = sddmm_values(path, a, b, c)
+        ctx.save_for_backward(vals, b, c, raw)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, b, c, raw = ctx.saved_tensors
+        path, a = ctx.path, ctx.a
+        dvals = db = dc = None
+        if ctx.needs_input_grad[2]:
+            dvals = _mask_structural(vals, g.float() * raw.float())
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            # M = A ⊙ ḡ shares A's topology; both remaining grads are SpMMs
+            mg = single_form(a, form_read_by(a, path),
+                                   (vals.float() * g.float()).to(vals.dtype))
+            if ctx.needs_input_grad[3]:
+                db = spmm_exec(path, mg, c.T.contiguous()).to(b.dtype)
+                _record_vjp("spmm", path, "vjp: dB = (A ⊙ ḡ) @ Cᵀ (sddmm "
+                            "backward is spmm)", a)
+            if ctx.needs_input_grad[4]:
+                dc = spmm_exec(path, mg.T, b.contiguous()).T.to(c.dtype)
+                _record_vjp("spmm", path, "vjp: dC = ((A ⊙ ḡ)ᵀ @ B)ᵀ (sddmm "
+                            "backward is spmm)", a)
+        return None, None, dvals, db, dc
+
+
+# ---------------------------------------------------------------------------
+# Fused SpMM + epilogue: Y = act(A @ H + bias + residual)
+# ---------------------------------------------------------------------------
+
+
+class SpMMEpilogue(torch.autograd.Function):
+    """``Y = act(A @ H + bias + residual)`` on one planned path (K5 / K6
+    on the card); inputs ``(path, epi, a, vals, h, bias, residual)``.
+
+    The forward keeps ``out`` and no pre-activation: relu and leaky relu
+    keep the sign, so ``act'`` is read from ``out``.  Backward: ``dz = ḡ
+    ⊙ act'(out)``, then ``dbias``, ``dresidual`` and the SpMM duality on
+    ``dz``."""
+
+    @staticmethod
+    def forward(ctx, path: str, epi: Epilogue, a: SparseMatrix,
+                vals: torch.Tensor, h: torch.Tensor,
+                bias: Optional[torch.Tensor],
+                residual: Optional[torch.Tensor]) -> torch.Tensor:
+        out = spmm_epilogue_exec(path, epi, a, h, bias, residual)
+        ctx.path, ctx.epi, ctx.a = path, epi, a
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        ctx.save_for_backward(vals, h, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, h, out = ctx.saved_tensors
+        path, epi, a = ctx.path, ctx.epi, ctx.a
+        needs = ctx.needs_input_grad
+        dz = g.float() * act_grad_from_out(out.float(), epi.act,
+                                           epi.negative_slope)
+        dvals = dh = dbias = dres = None
+        if epi.has_bias and needs[5]:
+            dbias = dz.sum(dim=0).to(ctx.bias_dtype)
+        if epi.has_residual and needs[6]:
+            dres = dz.to(ctx.residual_dtype)
+        # past the elementwise tail the rules are the SpMM duality
+        if needs[4]:
+            dh = spmm_exec(path, a.T, dz).to(h.dtype)
+            _record_vjp("spmm", path, "vjp: dH = Aᵀ @ (ḡ ⊙ act') "
+                        "(fused-epilogue spmm backward)", a)
+        if needs[3]:
+            raw = sample_exec(path, a, dz, h.T)
+            _record_vjp("sddmm", path, "vjp: dA = pattern(A) ⊙ ((ḡ ⊙ act') "
+                        "@ Hᵀ) (fused-epilogue spmm backward is sddmm)", a)
+            dvals = _mask_structural(vals, raw)
+        return None, None, None, dvals, dh, dbias, dres
+
+
+# ---------------------------------------------------------------------------
+# Fused graph attention: Y = softmax_row(act(q kᵀ ⊙ pattern(A))) @ V
+# ---------------------------------------------------------------------------
+
+
+class FusedAttention(torch.autograd.Function):
+    """The one-pass graph attention (K7 / K8 on the card); inputs
+    ``(path, a, vals, q, k, v, act, slope)``.
+
+    With α = softmax(act(e)) and O = α V, the backward assembles the
+    kernel duality:
+
+      * α and the raw scores are recomputed in the form's layout (one
+        SDDMM at K = dk and a row softmax), so the forward never spills
+        them;
+      * dα = ḡ Vᵀ sampled at the pattern — an SDDMM at K = D;
+      * the softmax JVP: de = α ⊙ (dα − rowdot) ⊙ act'(e), with rowdot_i
+        = ḡ_i · O_i read from the forward output;
+      * dq = (P ⊙ de) k and dk = (P ⊙ de)ᵀ q — the SDDMM backward's two
+        SpMMs; dV = αᵀ ḡ — an SpMM on the transposed α.
+
+    A's values contribute their pattern only and get zero gradient."""
+
+    @staticmethod
+    def forward(ctx, path: str, a: SparseMatrix, vals: torch.Tensor,
+                q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                act: str, slope: float) -> torch.Tensor:
+        out = fused_attention_exec(path, a, q, k, v, act, slope)
+        ctx.path, ctx.a, ctx.act, ctx.slope = path, a, act, slope
+        ctx.save_for_backward(vals, q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, q, k, v, out = ctx.saved_tensors
+        path, a, act, slope = ctx.path, ctx.a, ctx.act, ctx.slope
+        _, _, need_vals, need_q, need_k, need_v = ctx.needs_input_grad[:6]
+        dvals = torch.zeros_like(vals) if need_vals else None
+        dq = dk = dv = None
+        if not (need_q or need_k or need_v):
+            return None, None, dvals, dq, dk, dv, None, None
+        form_name = form_read_by(a, path)
+        mask = vals != 0
+        g = g.contiguous()
+        raw = sample_exec(path, a, q, k.T).float()
+        _record_vjp("sddmm", path, "vjp: recompute e = act(q kᵀ) at pattern "
+                    "(fused attn backward)", a)
+        e = torch.where(mask, apply_act(raw, act, slope), fat.NEG_INF)
+        alpha = _form_row_softmax(a, form_name, e, mask)
+        del e
+        if need_q or need_k:
+            dalpha = sample_exec(path, a, g, v.T).float()
+            _record_vjp("sddmm", path, "vjp: dα = ḡ Vᵀ at pattern (fused "
+                        "attn backward is sddmm)", a)
+            rowdot = (g.float() * out.float()).sum(dim=-1)
+            de = dalpha.sub_(_form_broadcast_rows(a, form_name, rowdot))
+            de.mul_(alpha).mul_(act_grad_from_out(raw, act, slope))
+            de.mul_(mask)
+            de_mat = single_form(a, form_name, de.to(vals.dtype))
+            del raw, dalpha, de
+            if need_q:
+                dq = spmm_exec(path, de_mat, k.contiguous()).to(q.dtype)
+                _record_vjp("spmm", path, "vjp: dq = (P ⊙ de) k (fused attn "
+                            "backward is spmm)", a)
+            if need_k:
+                dk = spmm_exec(path, de_mat.T, q.contiguous()).to(k.dtype)
+                _record_vjp("spmm", path, "vjp: dk = (P ⊙ de)ᵀ q (fused "
+                            "attn backward is spmm)", a)
+            del de_mat
+        if need_v:
+            alpha_mat = single_form(a, form_name, alpha.to(vals.dtype))
+            dv = spmm_exec(path, alpha_mat.T, g).to(v.dtype)
+            _record_vjp("spmm", path, "vjp: dV = αᵀ ḡ (fused attn backward "
+                        "is spmm)", a)
+        return None, None, dvals, dq, dk, dv, None, None

@@ -18,6 +18,7 @@ any of their paths.  The planner reads the host-measured
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -50,13 +51,22 @@ def with_values(name: str, form, vals: torch.Tensor):
     return dataclasses.replace(form, blocks=vals)
 
 
+def single_form(a: "SparseMatrix", name: str,
+                vals: torch.Tensor) -> "SparseMatrix":
+    """A matrix carrying only A's ``name`` form, with new values (A's
+    topology, stats and plan memo)."""
+    return SparseMatrix({name: with_values(name, a.form(name), vals)},
+                        a.shape, a.stats, cache=a.plan_cache)
+
+
 class SparseMatrix:
     """One sparse matrix, any carried storage format, dispatch-ready.
 
     Construct with :meth:`from_dense`.
     """
 
-    __slots__ = ("_forms", "shape", "stats", "_cache")
+    __slots__ = ("_forms", "shape", "stats", "_cache", "_transpose",
+                 "__weakref__")
 
     def __init__(self, forms: Dict[str, Any], shape: Tuple[int, int],
                  stats: Optional[MatrixStats],
@@ -71,6 +81,9 @@ class SparseMatrix:
         self.shape = (int(shape[0]), int(shape[1]))
         self.stats = stats
         self._cache = cache if cache is not None else PlanCache()
+        # the memoized transpose: a reference, or a weak one on the
+        # transpose back to its source (no cycle keeps device memory alive)
+        self._transpose: Any = None
 
     @classmethod
     def from_dense(cls, a, *, formats: Tuple[str, ...] = ("ell", "csr"),
@@ -143,10 +156,7 @@ class SparseMatrix:
         """Same topology, new values on the *primary* form.  Secondary
         forms are dropped (their values would go stale); the plan memo is
         shared, since plans depend on structure, not values."""
-        name = self.format
-        form = with_values(name, self._forms[name], values)
-        return SparseMatrix({name: form}, self.shape, self.stats,
-                            cache=self._cache)
+        return single_form(self, self.format, values)
 
     def pattern(self) -> "SparseMatrix":
         """0/1 mask of the primary form's nonzero entries (the sampling
@@ -159,6 +169,41 @@ class SparseMatrix:
         from repro_torch.sparse import ops
 
         return ops.sddmm(self, b, c, **kw)
+
+    # -- transpose ----------------------------------------------------------
+
+    @property
+    def T(self) -> "SparseMatrix":
+        """The transpose, built once and memoized both ways (a fixed graph
+        transposes once).  csr swaps its coordinates; sell becomes the csr
+        slot triplet (padding slots repeat coordinates with zero values);
+        ell and coo become transposed Block-COO (views of the blocks)."""
+        t = self._transpose
+        if isinstance(t, weakref.ref):
+            t = t()
+        if t is None:
+            t = self._transposed()
+            self._transpose = t
+            t._transpose = weakref.ref(self)
+        return t
+
+    def _transposed(self) -> "SparseMatrix":
+        forms: Dict[str, Any] = {}
+        for name, form in self._forms.items():
+            if name == "csr":
+                r, c, v = form
+                forms["csr"] = (c, r, v)
+            elif name == "sell":
+                # a packed tile covers permuted rows, so sell transposes
+                # element by element: the slot triplet with coordinates
+                # swapped is the transposed csr form
+                forms.setdefault(
+                    "csr", (form.slot_cols, form.slot_rows, form.slot_vals))
+            else:
+                coo = paths.ell_to_coo(form) if name == "ell" else form
+                forms.setdefault("coo", paths.transpose_coo(coo))
+        return SparseMatrix(forms, (self.shape[1], self.shape[0]),
+                            _transpose_stats(self.stats))
 
     # -- conversions --------------------------------------------------------
 
@@ -206,6 +251,20 @@ class SparseMatrix:
         forms = dict(self._forms)
         forms[fmt] = self.to(fmt)._forms[fmt]
         return SparseMatrix(forms, self.shape, self.stats, cache=self._cache)
+
+
+def _transpose_stats(stats: Optional[MatrixStats]
+                     ) -> Optional[MatrixStats]:
+    """The stats of the transpose, as the reference derives them (block
+    shape swapped, no ELL width: the transpose is Block-COO)."""
+    if stats is None:
+        return None
+    bm, bn = stats.block_n, stats.block_m
+    return MatrixStats(
+        shape=(stats.shape[1], stats.shape[0]), nnz=stats.nnz,
+        stored_elements=stats.stored_elements, block_m=bm, block_n=bn,
+        n_block_rows=max(stats.shape[1] // max(bm, 1), 1), ell_width=0,
+        occupancy=stats.occupancy)
 
 
 def _build_form(name: str, a: np.ndarray, block: Tuple[int, int],

@@ -7,7 +7,9 @@ cost model for ``policy="auto"`` or take a forced path, then run it.
 Plans are memoized per matrix: the first call for a given key plans,
 every later call hits the memo.  Candidate paths follow the forms a
 matrix carries (``ell`` needs an ``ell`` or ``coo`` form); ``dense``
-densifies on the device and is always available.
+densifies on the device and is always available.  Each op runs through
+its ``torch.autograd.Function`` (``repro_torch.sparse.autodiff``), so
+``loss.backward()`` differentiates through the SpMM <-> SDDMM duality.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
                                          POLICY_AUTO, normalize_policy)
 from repro_torch.kernels.fused.epilogue import normalize_epilogue
 from repro_torch.sparse import autodiff
-from repro_torch.sparse.matrix import SparseMatrix, with_values
+from repro_torch.sparse.matrix import SparseMatrix, single_form
 
 
 def available_paths(a: SparseMatrix) -> Tuple[str, ...]:
@@ -150,9 +152,11 @@ def matmul(
                          fused=None if epi is None else epi.describe())
     record_plan(plan)
     h = h.contiguous()
+    vals = autodiff.read_values(a, plan.path)
     if epi is None:
-        return autodiff.spmm_exec(plan.path, a, h)
-    return autodiff.spmm_epilogue_exec(plan.path, epi, a, h, bias, residual)
+        return autodiff.SpMM.apply(plan.path, a, vals, h)
+    return autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
+                                       residual)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +199,9 @@ def sddmm(
     plan = _resolve_plan("sddmm", a, b.shape[1], b.dtype, policy, cand,
                          cost_model)
     record_plan(plan)
-    vals = autodiff.sddmm_values(plan.path, a, b, c)
-    form_name = autodiff.form_read_by(a, plan.path)
-    return SparseMatrix(
-        {form_name: with_values(form_name, a.form(form_name), vals)},
-        a.shape, a.stats, cache=a.plan_cache)
+    vals = autodiff.SDDMMValues.apply(plan.path, a,
+                                      autodiff.read_values(a, plan.path), b, c)
+    return single_form(a, autodiff.form_read_by(a, plan.path), vals)
 
 
 # the paper's naming for the masked product
@@ -270,5 +272,7 @@ def fused_graph_attention(
                          q.dtype, policy, cand, cost_model,
                          key_extra=(edge_act, slope), fused="attn")
     record_plan(plan)
-    y = autodiff.fused_attention_exec(plan.path, a, q, k, v, edge_act, slope)
+    y = autodiff.FusedAttention.apply(plan.path, a,
+                                      autodiff.read_values(a, plan.path), q, k,
+                                      v, edge_act, slope)
     return y[:, 0] if v_was_1d else y

@@ -84,6 +84,14 @@ def ell_to_coo(ell: BlockELL) -> BlockCOO:
                     shape=ell.shape)
 
 
+def transpose_coo(coo: BlockCOO) -> BlockCOO:
+    """A.T in Block-COO: swap coordinates, transpose each block (a view;
+    ``spmm_coo`` reads it through ``einsum``, so nothing is copied)."""
+    return BlockCOO(rows=coo.cols, cols=coo.rows,
+                    blocks=coo.blocks.transpose(1, 2),
+                    shape=(coo.shape[1], coo.shape[0]))
+
+
 # ---------------------------------------------------------------------------
 # SELL-C-σ ("sell") paths
 # ---------------------------------------------------------------------------

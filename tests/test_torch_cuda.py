@@ -16,7 +16,13 @@ launched twice for equal bits; K2-K4 and K6-K8 on bf16
 and f16 operands (one rounding to the output dtype: rtol 1e-2 is more
 than one bf16 ulp, 2^-7, atol 1e-3); and GCN and GAT serving, the SDDMM
 front-end and block-sparse attention on the card against the same calls
-on the CPU.
+on the CPU.  For training: K1 / K2 at D = 1 and 2 and K3 / K4 at K = 16,
+17 and 128 (the backward's widths) against their plain versions, and the
+backward of each ``torch.autograd.Function`` (SpMM, SDDMM, the fused
+epilogue and the fused attention) on the ell and sell paths against the
+same backward on the CPU (rtol 1e-4, atol 1e-5), A's values trained
+where the rule reads them, so ``dA`` runs through K3 / K4, with the
+kernels each backward launches counted.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -65,7 +71,8 @@ from repro_torch.kernels.spmm.sell import (sell_row_operands,
 from repro_torch.models.gnn import (build_graph, graph_candidates, init_gat,
                                     init_gcn)
 from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
-from repro_torch.sparse.ops import sddmm
+from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse.ops import fused_graph_attention, matmul, sddmm
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -896,3 +903,118 @@ def test_bsattn_entry_matches_local_block_attention(dev):
     want = local_block_attention(*(t.transpose(0, 1)[None] for t in (q, k, v)),
                                  window=256, block=128)[0].transpose(0, 1)
     torch.testing.assert_close(out, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The backward rules: the kernels at the shapes a training step gives them
+# (K1 / K2 at D = 1 and 2 for GAT's dq; K3 / K4 at K = 16, 17 and 128 for
+# dα and a trained A's dA), and each rule on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block", [(64, 64), (16, 16)])
+@pytest.mark.parametrize("d", [1, 2])
+def test_spmm_kernels_at_backward_widths(dev, block, d):
+    bm, bn = block
+    ell = BlockELL.from_dense(_sparse(d + 40, 301, 277, 0.05), bm, bn,
+                              device=dev)
+    h = torch.randn(ell.shape[1], d, device=dev)
+    ops = (ell.indices, ell.blocks, h)
+    torch.testing.assert_close(spmm_blockell_kernel(*ops),
+                               spmm_blockell_ref(*ops), **TOL)
+    sell = SellCS.from_dense(_sparse(d + 41, 301, 277, 0.004), block=block,
+                             device=dev)
+    ops = (*sell_row_operands(sell), torch.randn(277, d, device=dev))
+    torch.testing.assert_close(
+        spmm_sell_kernel(*ops, heavy_rows=sell.tile_heavy_rows),
+        spmm_sell_slots_ref(*ops), **TOL)
+
+
+@pytest.mark.parametrize("block", [(64, 64), (16, 16)])
+@pytest.mark.parametrize("k", [16, 17, 128])
+def test_sddmm_kernels_at_backward_widths(dev, block, k):
+    """K3 without a mask and weighted, and K4, at the backward's K, with C
+    made from a transposed view as the rules hand it over."""
+    bm, bn = block
+    coo = BlockCOO.from_dense(_sparse(k + 50, 301, 277, 0.05), bm, bn,
+                              device=dev)
+    b = torch.randn(coo.shape[0], k, device=dev)
+    c = torch.randn(coo.shape[1], k, device=dev).T.contiguous()
+    for mask in (coo.blocks, None):
+        ops = (coo.rows, coo.cols, mask, b, c)
+        kw = dict(block=block, out_dtype=torch.float32)
+        torch.testing.assert_close(sddmm_blockcoo_kernel(*ops, **kw),
+                                   sddmm_blockcoo_ref(*ops, **kw), **TOL)
+    sell = SellCS.from_dense(_sparse(k + 51, 301, 277, 0.004), block=block,
+                             device=dev)
+    _check_k4(sell, torch.randn(301, k, device=dev),
+              torch.randn(277, k, device=dev).T.contiguous())
+
+
+RULES = ["spmm", "sddmm", "epilogue", "attention"]
+# the kernels a rule's backward launches on each path when every input,
+# A's values included, needs a gradient (dH, dk and dV run on the
+# transposed operand, which is plain PyTorch)
+BACKWARD_LAUNCHES = {
+    ("spmm", "ell"): {"K3": 1}, ("spmm", "sell"): {"K4": 1},
+    ("sddmm", "ell"): {"K1": 1}, ("sddmm", "sell"): {"K2": 1},
+    ("epilogue", "ell"): {"K3": 1}, ("epilogue", "sell"): {"K4": 1},
+    ("attention", "ell"): {"K3": 2, "K1": 1},
+    ("attention", "sell"): {"K4": 2, "K2": 1},
+}
+BACKWARD_KERNELS = {"K1": spmm_blockell_kernel, "K2": spmm_sell_kernel,
+                    "K3": sddmm_blockcoo_kernel, "K4": sddmm_sell_kernel}
+
+
+def _rule_grads(device, kind, rule):
+    """Gradients of one rule on one path at D = 128 (K = 128 for dα);
+    returns them on the CPU with the launches the backward made."""
+    n, d = 300, 128
+    density = 0.1 if kind == "ell" else 0.004
+    dense = _sparse(60, n, n, density)
+    a = SparseMatrix.from_dense(dense, formats=(kind,), block=(64, 64),
+                                device=device)
+    rng = np.random.default_rng(61)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device).requires_grad_(True)
+
+    vals = a.data.detach().clone().requires_grad_(True)
+    av = a.with_data(vals)
+    if rule == "spmm":
+        inputs = (vals, leaf(n, d))
+        y = matmul(av, inputs[1], policy=kind)
+    elif rule == "sddmm":
+        inputs = (vals, leaf(n, 16), leaf(16, n))
+        y = sddmm(av, *inputs[1:], policy=kind).densify()
+    elif rule == "epilogue":
+        inputs = (vals, leaf(n, d), leaf(d), leaf(n, d))
+        y = matmul(av, inputs[1], policy=kind, epilogue="leaky_relu",
+                   bias=inputs[2], residual=inputs[3])
+    else:
+        inputs = (leaf(n, 2), leaf(n, 2), leaf(n, d))
+        y = fused_graph_attention(a, *inputs, policy=kind)
+    w = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+        np.float32)).to(device)
+    before = {k: f.launches for k, f in BACKWARD_KERNELS.items()}
+    (torch.tanh(y) * w).sum().backward()
+    launches = {k: f.launches - before[k]
+                for k, f in BACKWARD_KERNELS.items()}
+    return [x.grad.cpu() for x in inputs], launches
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+@pytest.mark.parametrize("rule", RULES)
+def test_backward_on_card_matches_cpu(dev, kind, rule):
+    """Each rule's backward through the kernels against the same backward
+    on the CPU (their plain versions); A's values trained where the rule
+    reads them, so dA runs through K3 / K4."""
+    got, launches = _rule_grads("cuda", kind, rule)
+    want, _ = _rule_grads("cpu", kind, rule)
+    want_launches = dict.fromkeys(BACKWARD_KERNELS, 0)
+    want_launches.update(BACKWARD_LAUNCHES[rule, kind])
+    assert launches == want_launches
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
+                                   msg=f"{rule} {kind} input {i}")
