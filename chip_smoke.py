@@ -19,7 +19,11 @@ Phases, each of which must pass or the script exits non-zero:
      K = 2 and 48 (K3 with a weighted mask, with none and on bf16
      operands; K4 on its slot operands, held
      besides, exactly, to the tile kernel gathered to slots, with padding
-     and edge-less rows' slots exactly 0); K7/K8 at dk = 2 and 48,
+     and edge-less rows' slots exactly 0); K3 at a pattern (K3p) at
+     K = 2, 48 and 130, in f32 and bf16, over a Block-ELL form's Block-COO
+     view and its occupancy bits, equal bit for bit to K3 without a mask
+     at every set bit and exactly 0 elsewhere, launched twice for equal
+     bits; K7/K8 at dk = 2 and 48,
      D = 16 and 48, in f32 and bf16, with edge-less rows (exactly 0) and
      all three edge activations, each launched twice for equal bits (K8
      on its row view, held besides to the tile-granular plain version);
@@ -107,10 +111,18 @@ Phases, each of which must pass or the script exits non-zero:
      nodes/s, the peak device memory of a step) and one profiled step.
      The loss must fall (but on ``LOSS_FLAT``), and each step's launches
      are asserted (``TRAIN_LAUNCHES``; they join the kernel rows'
-     launches).  Then the
+     launches).  On (a), GAT's first-step gradients must also equal, per
+     ``torch.equal``, those of the every-cell route (``PATTERN_MIN_K``
+     out of reach, so every sampled product runs K3 without a mask),
+     both steps under ``torch.use_deterministic_algorithms``.  Then the
      backward's kernels at their own shapes, each held to its plain
-     version beside its bound and its library call: the SDDMM (K3 on (a),
-     K4 on (b)) at K = 128 (dα = ḡ Vᵀ) against ``sampled_addmm``, the
+     version beside its bound and its library call: the SDDMM at K = 128
+     (dα = ḡ Vᵀ) against ``sampled_addmm`` (on (a) K3 at the pattern, the
+     step's launch with C a transposed view, its bound counted from the
+     nonzeros, beside K3's staged kernel on every cell, the two equal at
+     every nonzero; and the two routes at K = 2, 4, 8 and 16, the widths
+     below 128 that set ``PATTERN_MIN_K`` (a step samples at 2 and 16);
+     K4 on (b)), the
      SpMM (K1, K2) at D = 2 (GAT's dq) against ``torch.sparse.mm``, and
      the plain dH = Aᵀ ḡ at D = 128 on the transposed operand beside
      ``torch.sparse.mm`` on a CSR of Aᵀ.
@@ -205,13 +217,15 @@ GRAD_TOL_SHARE = 1e-2
 LOSS_FLAT = {("ell", "gcn")}
 # kernel launches one training step makes, per graph path and model: the
 # forward's (K5 x2 + K1, K6 x2 + K2, K7 / K8 x3), GAT's backward K3 / K4
-# twice a layer (the score recompute and dα) and K1 / K2 once (dq); every
-# dH, dk and dV runs on the transposed operand, plain PyTorch, and A's
-# values take no gradient, so no dA is sampled
+# twice a layer (the score recompute at K = 2 and dα at K = D: 128, 128,
+# 16) and K1 / K2 once (dq); on (a) the sampling at K >= PATTERN_MIN_K
+# (dα) runs K3 at the pattern (K3p), the score recompute K3's streaming
+# kernel; every dH, dk and dV runs on the transposed operand,
+# plain PyTorch, and A's values take no gradient, so no dA is sampled
 TRAIN_LAUNCHES = {
     ("ell", "gcn"): {"K5": 2, "K1": 1},
     ("sell", "gcn"): {"K6": 2, "K2": 1},
-    ("ell", "gat"): {"K7": 3, "K3": 6, "K1": 3},
+    ("ell", "gat"): {"K7": 3, "K3": 3, "K3p": 3, "K1": 3},
     ("sell", "gat"): {"K8": 3, "K4": 6, "K2": 3},
 }
 SEED = 0
@@ -237,6 +251,8 @@ KERNELS = {
            "src/repro/kernels/fused/spmm.py:207"),
     "K3": ("sddmm_blockcoo_kernel", "src/repro_torch/csrc/sddmm.cu",
            "src/repro/kernels/sddmm/kernel.py:52"),
+    "K3p": ("sddmm_pattern_kernel", "src/repro_torch/csrc/sddmm.cu",
+            "src/repro/kernels/sddmm/kernel.py:52"),
     "K4": ("sddmm_sell_kernel", "src/repro_torch/csrc/sddmm.cu",
            "src/repro/kernels/sddmm/sell.py:58"),
     "K7": ("fused_attn_blockell_kernel",
@@ -315,6 +331,7 @@ class Port:
             "K5": fused.spmm_blockell_epilogue_kernel,
             "K6": fused.spmm_sell_epilogue_kernel,
             "K3": sddmm_kernel.sddmm_blockcoo_kernel,
+            "K3p": sddmm_kernel.sddmm_pattern_kernel,
             "K4": sddmm_sell.sddmm_sell_kernel,
             "K7": attention.fused_attn_blockell_kernel,
             "K8": attention.fused_attn_sell_kernel,
@@ -622,6 +639,66 @@ def ragged_checks_sddmm_attention(torch, np, port):
                 "bf16; edge-less rows exactly 0; two launches equal; K8 "
                 "also held to the tile-granular plain version): max_abs_err "
                 + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+
+
+def bits(torch, x):
+    """x's bit patterns, for comparisons that tell -0 from 0."""
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def hold_pattern(torch, name, got, every, keep):
+    """K3 at a pattern against K3 without a mask: equal bit for bit at
+    every set bit, exactly 0 at every other cell."""
+    torch.cuda.synchronize()
+    if not torch.equal(bits(torch, got[keep]), bits(torch, every[keep])):
+        raise AssertionError(f"{name}: a dot differs from K3's without a "
+                             "mask")
+    if bool(bits(torch, got[~keep]).any()):
+        raise AssertionError(f"{name}: a cell off the pattern is not 0")
+
+
+def ragged_checks_pattern(torch, np, port):
+    """Phase 2 for K3 at a pattern (K3p): K = 2, 48 and 130, f32 and bf16,
+    over the Block-COO view of a Block-ELL form with an all-padding
+    block-row and edge-less rows, m = 1000; held to its plain version and
+    to K3 without a mask, launched twice for equal bits."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 3)
+    m, bm = 1000, 64
+    a = np.where(rng.random((m, m)) < 0.05, rng.standard_normal((m, m)),
+                 0).astype(np.float32)
+    a[bm:2 * bm] = 0.0  # an all-padding block-row
+    a[[3, 500, 999]] = 0.0
+    ell = port.BlockELL.from_dense(a, bm, bm, device=dev)
+    coo = port.paths.ell_to_coo(ell)
+    occ = port.sddmm_ref.pack_occupancy(ell.blocks)
+    keep = coo.blocks != 0
+    if not torch.equal(port.sddmm_ref.unpack_occupancy(occ, bm), keep):
+        raise AssertionError("the occupancy bits are not blocks != 0")
+    k3p = port.wrappers["K3p"]
+    errs = {}
+    for k, dtype in itertools.product((2, 48, 130),
+                                      (torch.float32, torch.bfloat16)):
+        b = torch.randn(coo.shape[0], k, device=dev).to(dtype)
+        c = torch.randn(coo.shape[1], k, device=dev).to(dtype).T
+        ops = (coo.rows, coo.cols, occ, b, c)
+        kw = dict(block=(bm, bm), out_dtype=dtype)
+        what = f"K3p ragged k={k} {str(dtype).split('.')[-1]}"
+        got = k3p(*ops, **kw)
+        tol = KERNEL_TOL if dtype == torch.float32 else NARROW_TOL
+        errs[what] = check_close(
+            torch, what, got.float(),
+            port.sddmm_ref.sddmm_pattern_ref(*ops, **kw).float(), tol)
+        hold_pattern(torch, what, got, port.sddmm_kernel.launch_tiles(
+            coo.rows, coo.cols, None, b, c.contiguous(), what,
+            **kw), keep)
+        if not torch.equal(bits(torch, got), bits(torch, k3p(*ops, **kw))):
+            raise AssertionError(f"{what}: two launches gave different "
+                                 "bits")
+    log(f"ragged m={m} (COO tiles {coo.nnzb}, an all-padding block-row): "
+        "K3p equal bit for bit to K3 without a mask at every set bit, 0 "
+        "elsewhere, two launches equal; max_abs_err vs plain "
+        + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
 
 
 def sell_tile_path(torch, port, sell, b, c):
@@ -1342,6 +1419,9 @@ def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
         if abs(float(loss0) - want_loss) > ORACLE_RTOL * abs(want_loss):
             raise AssertionError(f"{what}: loss {float(loss0)} vs the "
                                  f"oracle's {want_loss}")
+        if (want_path, kind) == ("ell", "gat"):
+            every_cell_grads_equal(torch, port, params, graph, x, labels,
+                                   what)
         port.train.sgd_update(params, grads, TRAIN_LR)
         del grads, want_grads
         for k, v in counts.items():
@@ -1385,6 +1465,47 @@ def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
     return launches
 
 
+def every_cell_grads_equal(torch, port, params, graph, x, labels, what):
+    """The first step's gradients through the pattern route and through
+    the every-cell route (``PATTERN_MIN_K`` out of reach: every sampled
+    product on K3 without a mask), equal per ``torch.equal``.  Both run
+    under ``torch.use_deterministic_algorithms`` (warnings only), so the
+    transposed products' ``index_add_`` sums in one order; their launches
+    are checked, not counted."""
+    autodiff = port.autodiff
+    min_k = autodiff.PATTERN_MIN_K
+    expect = {"pattern": expected(port, TRAIN_LAUNCHES["ell", "gat"], 1),
+              "every cell": expected(port, {"K7": 3, "K3": 6, "K1": 3}, 1)}
+    was = torch.are_deterministic_algorithms_enabled()
+    grads = {}
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for route, k in (("pattern", min_k), ("every cell", 1 << 30)):
+                autodiff.PATTERN_MIN_K = k
+                port.reset_counts()
+                grads[route] = port.train.loss_and_grads(
+                    params, graph, x, labels, kind="gat")[2]
+                torch.cuda.synchronize()
+                if port.counts() != expect[route]:
+                    raise AssertionError(f"{what}: the {route} route "
+                                         f"launched {port.counts()}")
+    finally:
+        autodiff.PATTERN_MIN_K = min_k
+        torch.use_deterministic_algorithms(was)
+    bad = [name for (name, g), (_, w) in zip(
+        port.train.named_parameters(grads["pattern"]),
+        port.train.named_parameters(grads["every cell"]))
+        if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"{what}: the pattern route's gradients differ "
+                             f"from the every-cell route's: {bad}")
+    log(f"{what}: first-step gradients of the pattern route (K3p x3 + K3 "
+        "x3) equal those of the every-cell route (K3 x6), torch.equal, "
+        "every parameter")
+
+
 def profile_step(torch, port, step, per_step, what):
     """One more training step under ``torch.profiler`` (its launches
     checked, not counted)."""
@@ -1413,12 +1534,87 @@ def transposed_csr(torch, graph):
         (n, n)).coalesce().to_sparse_csr()
 
 
+def pattern_rows(torch, port, graph, a_lib, gen):
+    """On (a): K3 at the pattern (K3p) at K = 128 as the step launches it
+    (dα = ḡ Vᵀ: B = ḡ, C = Vᵀ a transposed view, the matrix's memoized
+    occupancy), held to its plain version and timed beside it, beside
+    ``sampled_addmm`` and beside its bound counted from the nonzeros; K3's
+    staged kernel on every cell at the same K (the route it replaced: C
+    made contiguous, as ``sample_exec`` hands it over), the two equal at
+    every nonzero; then both routes at K = 2, 4, 8 and 16 (K3's streaming
+    kernel there), which set ``PATTERN_MIN_K``.  Returns the rows by
+    name."""
+    dev = torch.device(DEVICE)
+    n, k = graph.n_nodes, port.cfg.hidden
+    paths = port.paths
+    coo = paths.ell_to_coo(graph.adj.form("ell"))
+    occ = graph.adj.tile_occupancy()
+    keep = coo.blocks != 0
+    nnz = int(keep.sum())
+    cells = coo.nnzb * coo.bm * coo.bn  # every cell of every tile
+    kw = dict(block=(coo.bm, coo.bn), out_dtype=torch.float32)
+    rows, lines = {}, []
+    for kk in (k, 2, 4, 8, 16):
+        b = torch.randn(n, kk, device=dev, generator=gen)
+        v = torch.randn(n, kk, device=dev, generator=gen)
+        bp = paths.pad_rows(b, coo.shape[0])
+        c = paths.pad_rows(v, coo.shape[1]).T  # a view, as the step's
+        cp = c.contiguous()
+        pat = (coo.rows, coo.cols, occ, bp, c)
+        bare = (coo.rows, coo.cols, None, bp, cp)
+        run = lambda: port.wrappers["K3p"](*pat, **kw)  # noqa: E731
+        every = lambda: port.wrappers["K3"](*bare, **kw)  # noqa: E731
+        hold_pattern(torch, f"K3p at K={kk}", run(), every(), keep)
+        if kk != k:
+            ms, every_ms = time_ms(torch, run), time_ms(torch, every)
+            lines.append(f"K={kk}: K3p {ms:.4f} ms, K3 streaming (every "
+                         f"cell) {every_ms:.4f} ms")
+            rows[f"K3p K={kk}"] = dict(ms=ms, every_cell_ms=every_ms)
+            continue
+        sampled = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+            a_lib, b, v.T, beta=0.0)
+        # what the work needs: the tile output written whole, the
+        # occupancy, B and C once; 2 K FLOP per nonzero
+        rows["K3p"] = measure(
+            torch, f"K3p at K={kk} (dα = ḡ Vᵀ at the pattern)", run,
+            lambda: port.sddmm_ref.sddmm_pattern_ref(*pat, **kw), sampled,
+            nbytes_of(coo.rows, coo.cols, occ, bp, cp) + cells * 4,
+            2 * kk * nnz, f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} "
+            f"K={kk}; {nnz} nonzeros sampled, the rest written 0; "
+            "library: sampled_addmm")
+        rows["K3"] = measure(
+            torch, f"K3 at K={kk} (the staged kernel, every cell)", every,
+            lambda: port.sddmm_ref.sddmm_blockcoo_ref(*bare, **kw), sampled,
+            nbytes_of(coo.rows, coo.cols, bp, cp) + cells * 4,
+            2 * kk * cells, f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} "
+            f"K={kk}; {cells} sampled entries (no mask); library: "
+            "sampled_addmm")
+        # the library call on a row-major C, the layout sample_exec hands
+        # the staged kernel (C made contiguous)
+        rows["K3p"]["library_row_major_c_ms"] = time_ms(
+            torch, lambda: torch.sparse.sampled_addmm(a_lib, b, cp[:, :n],
+                                                      beta=0.0))
+        log(f"  K3p at K={kk}: {rows['K3']['ms'] / rows['K3p']['ms']:.2f}x "
+            f"faster than the staged kernel; sampled_addmm takes "
+            f"{rows['K3p']['library_ms'] / rows['K3p']['ms']:.2f}x its time "
+            f"on C = Vᵀ (a view, the step's operand) and "
+            f"{rows['K3p']['library_row_major_c_ms'] / rows['K3p']['ms']:.2f}"
+            f"x on C row-major ({rows['K3p']['library_row_major_c_ms']:.4f} "
+            f"ms); {rows['K3p']['ms'] / rows['K3p']['bound_ms']:.2f}x its "
+            f"bound; equal to the staged kernel at all {nnz} nonzeros")
+    log("K3p against K3's streaming kernel, each equal to it at every "
+        "nonzero (the step samples at PATTERN_MIN_K = "
+        f"{port.autodiff.PATTERN_MIN_K} and up at the pattern): "
+        + "; ".join(lines))
+    return rows
+
+
 def backward_rows(torch, port, graph, want_path):
     """The kernels at the shapes a training step gives them, each held to
     its plain version beside its bound and its library call: the SDDMM
-    (K3 / K4) at K = 128 (dα = ḡ Vᵀ) and the SpMM (K1 / K2) at D = 2 (dq);
-    and the plain dH = Aᵀ ḡ at D = 128 beside ``torch.sparse.mm`` on a CSR
-    of Aᵀ.  Returns the rows by name."""
+    (K3p / K4) at K = 128 (dα = ḡ Vᵀ) and the SpMM (K1 / K2) at D = 2
+    (dq); and the plain dH = Aᵀ ḡ at D = 128 beside ``torch.sparse.mm`` on
+    a CSR of Aᵀ.  Returns the rows by name."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     n, k, d = graph.n_nodes, port.cfg.hidden, 2
@@ -1432,20 +1628,7 @@ def backward_rows(torch, port, graph, want_path):
     rows = {}
     if want_path == "ell":
         ell = graph.adj.form("ell")
-        coo = paths.ell_to_coo(ell)
-        bp = paths.pad_rows(b, coo.shape[0])
-        cp = paths.pad_cols(c, coo.shape[1]).contiguous()
-        cells = coo.nnzb * coo.bm * coo.bn  # every cell of every tile
-        bare = (coo.rows, coo.cols, None, bp, cp)
-        kw = dict(block=(coo.bm, coo.bn), out_dtype=torch.float32)
-        rows["K3"] = measure(
-            torch, "K3 at K=128 (dα = ḡ Vᵀ)",
-            lambda: port.wrappers["K3"](*bare, **kw),
-            lambda: port.sddmm_ref.sddmm_blockcoo_ref(*bare, **kw), sampled,
-            nbytes_of(coo.rows, coo.cols, bp, cp) + cells * 4,
-            2 * k * cells, f"nnzb={coo.nnzb} blocks {coo.bm}x{coo.bn} "
-            f"K={k}; {cells} sampled entries (no mask); library: "
-            "sampled_addmm")
+        rows.update(pattern_rows(torch, port, graph, a_lib, gen))
         hp = paths.pad_rows(h2, ell.shape[1])
         args = (ell.indices, ell.blocks, hp)
         nnz = int((ell.blocks != 0).sum())
@@ -1456,7 +1639,7 @@ def backward_rows(torch, port, graph, want_path):
             nbytes_of(*args) + ell.shape[0] * d * 4, 2 * nnz * d,
             f"nbr={ell.n_block_rows} W={ell.ell_width} D={d}; {nnz} "
             "nonzeros; library: torch.sparse.mm")
-        del bare, bp, cp, args, hp
+        del args, hp
     else:
         sell = graph.adj.form("sell")
         args = (*port.sddmm_sell.sddmm_sell_operands(sell), b, c)
@@ -1537,15 +1720,19 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     log(f"graph ({label}) peak device memory {peak / 2**30:.2f} GiB")
     del pattern
     torch.cuda.empty_cache()
-    # phase 5 on the same graph; its launches join the kernel rows
-    for name, count in train_phase(torch, np, port, graph, adj, xs[0], label,
-                                   want_path).items():
+    # phase 5 on the same graph; its launches join the kernel rows (K3p's
+    # row is its backward shape's, K = 128)
+    launches = train_phase(torch, np, port, graph, adj, xs[0], label,
+                           want_path)
+    backward = backward_rows(torch, port, graph, want_path)
+    if "K3p" in backward:
+        rows["K3p"] = dict(backward["K3p"], launches=0)
+    for name, count in launches.items():
         if count and name not in rows:
             raise AssertionError(f"training on ({label}) launched {name}, "
                                  "a kernel of the other path")
         if count:
             rows[name]["launches"] += count
-    backward = backward_rows(torch, port, graph, want_path)
     return rows, backward
 
 
@@ -1848,6 +2035,7 @@ def main() -> int:
     ragged_checks(torch, np, port)
     ragged_checks_blockell(torch, np, port)
     ragged_checks_sddmm_attention(torch, np, port)
+    ragged_checks_pattern(torch, np, port)
     ragged_checks_bsattn(torch, np, port)
 
     n = N_NODES

@@ -43,6 +43,55 @@
 //    wrapper needed K % bk == 0 and fell back to bk = K).
 // Both sum each dot in the same order, so they agree bit for bit.
 //
+// K3 at a pattern (sddmm_pattern_kernel, entry sddmm_pattern): the same
+// unweighted tiles, but only at the cells an occupancy bit marks, exact 0
+// elsewhere.  It replaces sddmm_staged_kernel on the training step's
+// sampling (autodiff.sample_pattern_exec: dA = pattern(A) ⊙ (ḡ Hᵀ) and
+// the attention backward's dα = ḡ Vᵀ at K = D), whose callers mask every
+// cell off A's pattern straight after.  On the serving graph (65,536
+// tiles of 64 x 64, 10 % filled) at K = 128 the staged kernel summed
+// 268 M dots for 26.9 M nonzeros, FFMA over a predicated register grid.
+// The occupancy is one bit per cell, 32-bit words per tile row, built
+// once per matrix (SparseMatrix.tile_occupancy): a row's nonzeros come
+// out of __popc / __ffs without a search, words load with 4-byte
+// cp.async, and the array is 1/32 of the tiles' f32 bytes (32 MiB there).
+// What bounds it on an H100: the 1 GiB of output tiles, written whole
+// (0.32 ms at 3.35 TB/s); the nonzeros' 6.9 GFLOP are 0.10 ms of FP32.
+// Behind the store, operand traffic: each dot reads a row of B and a
+// column of C, K values each.  The design:
+//  - B's block-row slice (bm x K, 32 KiB at 64 x 128 f32) stays in
+//    shared memory for all the tiles of a block row (a block walks a
+//    contiguous range of tiles, so it reloads B only where the block row
+//    changes);
+//  - C is read as its transpose (each column of C one contiguous row of
+//    the caller's V, H or k, with no copy) and staged per tile by
+//    cp.async: one tile ahead where two stages still let as many blocks
+//    share an SM, else one stage (64 x 64 tiles at K = 128 f32: 92 KB a
+//    block, two blocks an SM), so that one block's dots cover the other's
+//    loads, barriers and stores (one block an SM with two stages was
+//    1.3x slower on the serving graph: kernels/sddmm/parts.py);
+//  - work is assigned by nonzero, and by what the nonzero reads: shared
+//    memory serves a quarter warp's 16-byte reads at once only where they
+//    fall in 8 distinct groups of 4 banks, and a random column pattern
+//    puts several of 8 lanes' C rows in one group.  So each tile's set
+//    bits are listed by column mod 8 (one warp a list, a warp scan over
+//    the rows), and a quarter warp takes one entry of each list: its C
+//    rows fall in 8 distinct bank groups, its B rows (a few rows apart)
+//    mostly too.  Each lane sums whole dots, reading B and C as 16-byte
+//    vectors along K;
+//  - the dots land in an f32 tile in shared memory, which leaves in
+//    16-byte streaming stores, zeros included.
+// What is left: the residue lists scatter a quarter warp's B rows, and
+// their bank conflicts are about a fifth of the time at K = 128
+// (kernels/sddmm/parts.py: B read from one row instead).
+// Each dot is summed in f32 with fmaf from 0 in ascending K, the same
+// expression as the two kernels above, so at every set bit it equals
+// their element bit for bit.  K above the chunk (512 bytes of a row, less
+// for the widest tiles) is summed chunk by chunk into the same running
+// value: the order does not change.  Where K is not a multiple of the
+// 16-byte vector, the padded terms are fmaf(0, 0, acc), which leave acc
+// unchanged.  Any K >= 1, bm, bn <= 128, f32 / bf16 / f16 in and out.
+//
 // K4 (sddmm_slots_kernel), the raw dots at the structural nonzeros of a
 // SELL packing, in slot order:
 //
@@ -358,6 +407,359 @@ cudaError_t dispatch_out(int out_dtype, bool has_mask, const int* rows,
   return cudaErrorInvalidValue;
 }
 
+// --- sddmm_pattern_kernel: K3 at the structural nonzeros of each tile ---
+
+constexpr int kPatThreads = 256;
+constexpr int kPatChunkBytes = 512;   // K chunk of a staged operand row
+constexpr int kPatMaxSmem = 232448;   // what one block may use on sm_90
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ constexpr unsigned up16(unsigned x) {
+  return (x + 15u) & ~15u;
+}
+
+// The dynamic shared memory of one block, in bytes: B's chunk (bm rows),
+// `stages` C chunks (bn rows each), each operand row kc elements padded
+// to an odd number of 16-byte vectors (so that rows r and r + 1 start 4
+// banks apart, and any 8 rows of distinct r mod 8 read vector v from 8
+// distinct groups of 4 banks); the f32 tile of dots; `stages` tiles of
+// occupancy words; the tile's nonzeros (row << 8 | column, 16 bits each)
+// in kResidues lists, one per column mod kResidues, cap entries each, and
+// their lengths.
+constexpr int kResidues = 8;  // 16-byte vectors a row of 32 banks holds
+
+struct PatLayout {
+  unsigned rs, ow, cap, b, c, y, occ, list, len, bytes;
+};
+
+__host__ __device__ inline PatLayout pat_layout(int bm, int bn, int kc,
+                                                int esize, int stages) {
+  PatLayout l;
+  const unsigned vecs = static_cast<unsigned>(kc * esize) / 16;
+  l.rs = 16 * (vecs + (vecs % 2 == 0 ? 1 : 2));
+  l.ow = (bn + 31) / 32;
+  l.cap = bm * ((bn + kResidues - 1) / kResidues);
+  l.b = 0;
+  l.c = l.b + bm * l.rs;
+  l.y = l.c + stages * bn * l.rs;
+  l.occ = l.y + up16(bm * bn * 4);
+  l.list = l.occ + up16(stages * bm * l.ow * 4);
+  l.len = l.list + up16(kResidues * l.cap * 2);
+  l.bytes = l.len + up16(kResidues * 4);
+  return l;
+}
+
+// Rows [0, n) of a chunk of kn elements (row stride k in global memory)
+// into shared rows of rs bytes, padded with zeros to whole 16-byte
+// vectors.  Where vec (k a multiple of the vector, 16-byte aligned
+// base): 16-byte pieces, by cp.async where ASYNC, else by loads through
+// the read-only path; otherwise element by element, synchronously.
+template <typename TB, bool ASYNC>
+__device__ __forceinline__ void load_chunk(unsigned char* dst,
+                                           const TB* __restrict__ src, int n,
+                                           int kn, int k, unsigned rs,
+                                           bool vec) {
+  constexpr int VEC = 16 / sizeof(TB);
+  const int pieces = (kn + VEC - 1) / VEC;
+  if (vec) {
+    for (int e = threadIdx.x; e < n * pieces; e += kPatThreads) {
+      const int r = e / pieces;
+      const int p = e - r * pieces;
+      const TB* from = src + static_cast<size_t>(r) * k + p * VEC;
+      unsigned char* to = dst + r * rs + p * 16;
+      if constexpr (ASYNC)
+        cp_async16(smem_addr(to), from);
+      else
+        *reinterpret_cast<uint4*>(to) =
+            __ldg(reinterpret_cast<const uint4*>(from));
+    }
+  } else {
+    const int w = pieces * VEC;
+    for (int e = threadIdx.x; e < n * w; e += kPatThreads) {
+      const int r = e / w;
+      const int i = e - r * w;
+      reinterpret_cast<TB*>(dst + r * rs)[i] =
+          i < kn ? src[static_cast<size_t>(r) * k + i] : TB{};
+    }
+  }
+}
+
+// A block walks a contiguous range of tiles, each in K chunks of kc
+// elements (one chunk where K fits): a step is one (tile, chunk).  Step s
+// finds C's chunk (and, at a tile's first chunk, its occupancy words) in
+// stage s % stages, loaded by cp.async one step ahead where there are two
+// stages, or at the step's start where one stage lets more blocks share an
+// SM (the other blocks' work then covers the wait); B's chunk is
+// loaded when the block row changes (or every step where K takes several
+// chunks).  At a tile's first chunk warp q lists the tile's nonzeros of
+// the columns j = q mod kResidues, row by row (a warp scan gives each row
+// its place).  Then a warp takes 4 consecutive entries of every list,
+// lane l entry 4 b + l / 8 of list l % 8, so that the 8 lanes of each
+// quarter warp read C rows of 8 distinct residues (no bank conflict) and
+// B rows a few rows apart; each lane sums its dot over the chunk, from
+// the dot's running value in the f32 tile, with fmaf in ascending K.
+// After the last chunk the tile leaves as 16-byte streaming stores (zeros
+// where no bit is set) and the f32 tile is zeroed for the next.
+template <typename TB, typename TO>
+__global__ void __launch_bounds__(kPatThreads)
+    sddmm_pattern_kernel(const int* __restrict__ rows,
+                         const int* __restrict__ cols,
+                         const unsigned* __restrict__ occ,
+                         const TB* __restrict__ b, const TB* __restrict__ ct,
+                         TO* __restrict__ y, int n_tiles, int bm, int bn,
+                         int k, int kc, int stages, bool vec_in,
+                         bool vec_out) {
+  constexpr int VEC = 16 / sizeof(TB);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PatLayout L = pat_layout(bm, bn, kc, sizeof(TB), stages);
+  unsigned char* bs = smem + L.b;
+  float* ys = reinterpret_cast<float*>(smem + L.y);
+  unsigned* os = reinterpret_cast<unsigned*>(smem + L.occ);
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem + L.list);
+  int* lens = reinterpret_cast<int*>(smem + L.len);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int cells = bm * bn;
+  const int words = bm * static_cast<int>(L.ow);
+  for (int e = tid; e < cells; e += kPatThreads) ys[e] = 0.f;
+
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * n_tiles / gridDim.x;
+  const long long t1 =
+      static_cast<long long>(blockIdx.x + 1) * n_tiles / gridDim.x;
+  const int n_chunks = (k + kc - 1) / kc;
+  const long long steps = (t1 - t0) * n_chunks;
+
+  // step s's C chunk, and its tile's occupancy at the first chunk, into
+  // stage s % stages; one cp.async group a step, empty past the end
+  const auto issue = [&](long long s) {
+    if (s < steps) {
+      const long long t = t0 + s / n_chunks;
+      const int c = static_cast<int>(s % n_chunks);
+      const int st = static_cast<int>(s % stages);
+      const int k0 = c * kc;
+      load_chunk<TB, true>(
+          smem + L.c + st * bn * L.rs,
+          ct + static_cast<size_t>(cols[t]) * bn * k + k0, bn,
+          min(kc, k - k0), k, L.rs, vec_in);
+      if (c == 0) {
+        const unsigned* from = occ + static_cast<size_t>(t) * words;
+        unsigned* to = os + st * words;
+        for (int e = tid; e < words; e += kPatThreads)
+          cp_async4(smem_addr(to + e), from + e);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (stages == 2) issue(0);
+  int b_row = -1;  // the block row of B in shared memory
+  for (long long s = 0; s < steps; ++s) {
+    if (stages == 2) {
+      cp_async_wait<0>();
+      __syncthreads();  // stage s landed; step s - 1 is done with B, lists
+      issue(s + 1);
+    } else {
+      __syncthreads();  // step s - 1 is done with the stage, B and lists
+      issue(s);
+      cp_async_wait<0>();
+      __syncthreads();  // stage s landed
+    }
+    const long long t = t0 + s / n_chunks;
+    const int c = static_cast<int>(s % n_chunks);
+    const int st = static_cast<int>(s % stages);
+    const int k0 = c * kc;
+    const int kn = min(kc, k - k0);
+    if (c == 0 && warp < kResidues) {
+      // warp q lists the nonzeros of columns q, q + 8, ... row by row
+      const unsigned* o = os + st * words;
+      const unsigned qbits = 0x01010101u << warp;
+      unsigned short* lq = list + warp * L.cap;
+      int base = 0;
+      for (int r0 = 0; r0 < bm; r0 += 32) {
+        const int r = r0 + lane;
+        unsigned w[4];
+        int n = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // bits at or past bn are ignored
+          const int left = r < bm ? bn - 32 * i : 0;
+          w[i] = left <= 0   ? 0u
+                 : left < 32 ? o[r * L.ow + i] & ((1u << left) - 1u)
+                             : o[r * L.ow + i];
+          w[i] &= qbits;
+          n += __popc(w[i]);
+        }
+        int incl = n;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int up = __shfl_up_sync(0xffffffffu, incl, d);
+          if (lane >= d) incl += up;
+        }
+        int at = base + incl - n;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          for (unsigned x = w[i]; x; x &= x - 1)
+            lq[at++] = static_cast<unsigned short>(
+                (r << 8) | (i * 32 + __ffs(x) - 1));
+        }
+        base += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      if (lane == 0) lens[warp] = base;
+    }
+    const int row = rows[t];
+    if (n_chunks > 1 || row != b_row) {
+      load_chunk<TB, false>(bs, b + static_cast<size_t>(row) * bm * k + k0,
+                            bm, kn, k, L.rs, vec_in);
+      b_row = row;
+    }
+    __syncthreads();  // the lists and B's chunk are in place
+    const int q = lane % kResidues;
+    const int len = lens[q];
+    int longest = 0;
+#pragma unroll
+    for (int i = 0; i < kResidues; ++i) longest = max(longest, lens[i]);
+    const unsigned char* cs = smem + L.c + st * bn * L.rs;
+    const int nv = (kn + VEC - 1) / VEC;
+    constexpr int kPerList = 32 / kResidues;  // entries a warp takes
+    for (int b0 = warp * kPerList; b0 < longest;
+         b0 += kPatThreads / kResidues) {
+      const int pos = b0 + lane / kResidues;
+      if (pos >= len) continue;
+      const int code = list[q * L.cap + pos];
+      const int r = code >> 8;
+      const int j = code & 0xff;
+      const uint4* bp = reinterpret_cast<const uint4*>(bs + r * L.rs);
+      const uint4* cp = reinterpret_cast<const uint4*>(cs + j * L.rs);
+      float acc = ys[r * bn + j];
+#pragma unroll 4
+      for (int v = 0; v < nv; ++v) {
+        const uint4 braw = bp[v], craw = cp[v];
+        TB bv[VEC], cv[VEC];
+        memcpy(bv, &braw, sizeof braw);
+        memcpy(cv, &craw, sizeof craw);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc = fmaf(Elem<TB>::to_f(bv[i]), Elem<TB>::to_f(cv[i]), acc);
+      }
+      ys[r * bn + j] = acc;
+    }
+    if (c == n_chunks - 1) {
+      __syncthreads();  // every dot of the tile is in ys
+      TO* yt = y + static_cast<size_t>(t) * cells;
+      if (vec_out) {
+        constexpr int VO = 16 / sizeof(TO);
+        for (int v = tid; v < cells / VO; v += kPatThreads) {
+          float4* src = reinterpret_cast<float4*>(ys + v * VO);
+          TO out[VO];
+#pragma unroll
+          for (int q = 0; q < VO / 4; ++q) {
+            const float4 f = src[q];
+            out[4 * q] = Elem<TO>::from_f(f.x);
+            out[4 * q + 1] = Elem<TO>::from_f(f.y);
+            out[4 * q + 2] = Elem<TO>::from_f(f.z);
+            out[4 * q + 3] = Elem<TO>::from_f(f.w);
+            src[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          stcs_vec(yt + v * VO, out);
+        }
+      } else {
+        for (int e = tid; e < cells; e += kPatThreads) {
+          yt[e] = Elem<TO>::from_f(ys[e]);
+          ys[e] = 0.f;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename TB, typename TO>
+cudaError_t launch_pattern(const int* rows, const int* cols,
+                           const unsigned* occ, const void* b,
+                           const void* ct, void* y, int n_tiles, int bm,
+                           int bn, int k, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(TB);
+  // the K chunk: whole operand rows up to kPatChunkBytes, halved (in
+  // 16-byte vectors) until the block's shared memory fits
+  int kcb = std::min((k + VEC - 1) / VEC * 16, kPatChunkBytes);
+  const auto bytes = [&](int cb, int stages) {
+    return pat_layout(bm, bn, cb / static_cast<int>(sizeof(TB)),
+                      sizeof(TB), stages).bytes;
+  };
+  while (bytes(kcb, 1) > kPatMaxSmem && kcb > 16)
+    kcb = std::max(16, (kcb / 2 + 15) / 16 * 16);
+  if (bytes(kcb, 1) > kPatMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = sddmm_pattern_kernel<TB, TO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPatMaxSmem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // two stages unless one lets more blocks share an SM
+  int per_sm[3] = {0, 0, 0};
+  for (int st = 1; st <= 2 && err == cudaSuccess; ++st)
+    if (bytes(kcb, st) <= kPatMaxSmem)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[st], kernel, kPatThreads, bytes(kcb, st));
+  if (err != cudaSuccess) return err;
+  const int stages = per_sm[2] >= per_sm[1] ? 2 : 1;
+  const unsigned smem = bytes(kcb, stages);
+  const int grid = std::min(n_tiles, sms * std::max(per_sm[stages], 1));
+  const bool vec_in = k % VEC == 0 && aligned16(b) && aligned16(ct);
+  const bool vec_out = bm * bn % (16 / sizeof(TO)) == 0 && aligned16(y);
+  kernel<<<grid, kPatThreads, smem, stream>>>(
+      rows, cols, occ, static_cast<const TB*>(b), static_cast<const TB*>(ct),
+      static_cast<TO*>(y), n_tiles, bm, bn, k,
+      kcb / static_cast<int>(sizeof(TB)), stages, vec_in, vec_out);
+  return cudaGetLastError();
+}
+
+template <typename TB>
+cudaError_t pattern_out(int out_dtype, const int* rows, const int* cols,
+                        const unsigned* occ, const void* b, const void* ct,
+                        void* y, int n_tiles, int bm, int bn, int k,
+                        cudaStream_t s) {
+  switch (out_dtype) {
+    case 0:
+      return launch_pattern<TB, float>(rows, cols, occ, b, ct, y, n_tiles,
+                                       bm, bn, k, s);
+    case 1:
+      return launch_pattern<TB, __nv_bfloat16>(rows, cols, occ, b, ct, y,
+                                               n_tiles, bm, bn, k, s);
+    case 2:
+      return launch_pattern<TB, __half>(rows, cols, occ, b, ct, y, n_tiles,
+                                        bm, bn, k, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 constexpr int kSlotBatch = 4;  // nonzeros in flight per lane
 
 // KS: K fixed at compile time (B's row then lives in registers), or 0.
@@ -439,6 +841,36 @@ extern "C" int sddmm_tiles(const int* rows, const int* cols, const void* mask,
     case 2:
       return dispatch_out<__half>(out_dtype, has_mask, rows, cols, mask, b,
                                   c, y, n_tiles, bm, bn, k, n, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// rows, cols int32[n_tiles]; occ int32[n_tiles, bm, ceil(bn / 32)], bit i
+// of word w of tile t's row r set where cell (r, 32 w + i) is sampled; b
+// [*, k] with rows[t] * bm + bm <= its row count and ct [*, k] (C's
+// transpose) with cols[t] * bn + bn <= its row count, both of dtype b_dtype
+// and contiguous; y [n_tiles, bm, bn] of dtype out_dtype (codes 0 f32,
+// 1 bf16, 2 f16), written whole.  bm, bn <= 128.  Returns the cudaError_t
+// of the launch.
+extern "C" int sddmm_pattern(const int* rows, const int* cols,
+                             const void* occ, const void* b, const void* ct,
+                             void* y, int n_tiles, int bm, int bn, int k,
+                             int b_dtype, int out_dtype, void* stream) {
+  if (n_tiles == 0) return cudaSuccess;
+  if (bm < 1 || bn < 1 || bm > kMaxR * kSide || bn > kMaxR * kSide || k < 1)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* o = static_cast<const unsigned*>(occ);
+  switch (b_dtype) {
+    case 0:
+      return pattern_out<float>(out_dtype, rows, cols, o, b, ct, y, n_tiles,
+                                bm, bn, k, s);
+    case 1:
+      return pattern_out<__nv_bfloat16>(out_dtype, rows, cols, o, b, ct, y,
+                                        n_tiles, bm, bn, k, s);
+    case 2:
+      return pattern_out<__half>(out_dtype, rows, cols, o, b, ct, y, n_tiles,
+                                 bm, bn, k, s);
   }
   return cudaErrorInvalidValue;
 }

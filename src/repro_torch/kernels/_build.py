@@ -36,6 +36,7 @@ _SIGNATURES = {
                       [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]),
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles", [_P] * 6 + [_I] * 7 + [_P]),
+    "sddmm_pattern": ("sddmm_pattern", [_P] * 6 + [_I] * 6 + [_P]),
     "sddmm_sell_slots": ("sddmm_sell_slots_f32", [_P] * 7 + [_I] * 3 + [_P]),
     "fused_attention": ("fused_attn_blockell",
                         [_I, _I] + [_P] * 6 + [_I] * 8 + [_F, _P]),
@@ -44,7 +45,7 @@ _SIGNATURES = {
                         + [_F, _P]),
     "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
-_SOURCE = {"sddmm_sell_slots": "sddmm",
+_SOURCE = {"sddmm_sell_slots": "sddmm", "sddmm_pattern": "sddmm",
            "fused_attn_sell": "fused_attention"}
 
 _LOCK = threading.Lock()

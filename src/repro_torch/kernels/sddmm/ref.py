@@ -1,11 +1,19 @@
 """Plain PyTorch version of Block-COO SDDMM: Y = A ⊙ (B @ C) at A's
 nonzero blocks (kernel K3's counterpart, following
-``repro.kernels.sddmm.ref``)."""
+``repro.kernels.sddmm.ref``), and of K3 at a pattern, with the bit words
+of a tile pattern it reads."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+WORD_BITS = 32
+# each bit's value in an int32 word (bit 31 is the sign)
+_BIT_VALUES = [1 << i for i in range(WORD_BITS - 1)] + [-(1 << 31)]
+# tiles packed at a time, so the packing's scratch stays small
+_PACK_TILES = 4096
 
 
 def tile_products(rows: torch.Tensor, cols: torch.Tensor, b: torch.Tensor,
@@ -67,3 +75,46 @@ def sddmm_blockcoo_ref(rows: torch.Tensor, cols: torch.Tensor,
     out = torch.promote_types(mask_blocks.dtype, b.dtype)
     dots = tile_products(rows, cols, b, c, bm, bn).to(out)
     return (mask_blocks.float() * dots.float()).to(out)
+
+
+def pack_occupancy(blocks: torch.Tensor) -> torch.Tensor:
+    """The nonzero cells of each tile row as bit words: int32 [T, bm,
+    ceil(bn / 32)] for ``blocks`` [..., bm, bn] (T tiles); bit i of word w
+    of tile t's row r is set where ``blocks[t, r, 32 w + i] != 0``, bits
+    past bn are 0."""
+    bm, bn = blocks.shape[-2:]
+    tiles = blocks.reshape(-1, bm, bn)
+    words = -(-bn // WORD_BITS)
+    values = torch.tensor(_BIT_VALUES, dtype=torch.int32,
+                          device=tiles.device)
+    out = torch.empty((tiles.shape[0], bm, words), dtype=torch.int32,
+                      device=tiles.device)
+    for t in range(0, tiles.shape[0], _PACK_TILES):
+        bits = (tiles[t:t + _PACK_TILES] != 0).to(torch.int32)
+        bits = F.pad(bits, (0, words * WORD_BITS - bn))
+        # distinct bits: the sum is their OR, and fits an int32
+        out[t:t + _PACK_TILES] = (bits.view(-1, bm, words, WORD_BITS)
+                                  * values).sum(-1)
+    return out
+
+
+def unpack_occupancy(occupancy: torch.Tensor, bn: int) -> torch.Tensor:
+    """Bool [T, bm, bn]: the cells whose bit ``occupancy`` sets."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32,
+                          device=occupancy.device)
+    bits = (occupancy[..., None] >> shifts) & 1
+    return bits.reshape(*occupancy.shape[:-1], -1)[..., :bn] != 0
+
+
+def sddmm_pattern_ref(rows: torch.Tensor, cols: torch.Tensor,
+                      occupancy: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, *, block: Tuple[int, int],
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K3 at a pattern: ``tile_products`` in
+    ``out_dtype`` at the cells whose ``occupancy`` bit is set
+    (``pack_occupancy``), exact 0 elsewhere; [T, bm, bn] with (bm, bn) =
+    ``block``."""
+    bm, bn = block
+    keep = unpack_occupancy(occupancy, bn)
+    return torch.where(keep, tile_products(rows, cols, b, c, bm, bn),
+                       0.0).to(out_dtype)

@@ -17,6 +17,10 @@ and for ``S = A ⊙ (B C)``,
 Each rule runs through the path the forward ran (ell / sell / csr /
 dense), so on the card the backward launches the same kernels: K3 / K4
 for every sampled product, K1 / K2 for every SpMM on A's own form.  The
+products the rules sample are masked with A's pattern straight after, so
+they go through ``sample_pattern_exec``: on the ell path at K >=
+``PATTERN_MIN_K`` that is K3 at the pattern, which computes only A's
+structural nonzeros.  The
 transposed ell operand is Block-COO and runs ``paths.spmm_coo``, the
 transposed sell operand its slot triplet as an element form, both plain
 PyTorch as in the reference.  Each rule that runs records a plan with
@@ -47,6 +51,7 @@ from repro_torch.kernels.fused.epilogue import (Epilogue, act_grad_from_out,
                                                 apply_act, apply_epilogue)
 from repro_torch.kernels.fused.spmm import (spmm_blockell_fused,
                                             spmm_sell_fused)
+from repro_torch.kernels.sddmm.kernel import sddmm_pattern_kernel
 from repro_torch.sparse import paths
 from repro_torch.sparse.matrix import SparseMatrix, single_form, values_of
 
@@ -148,6 +153,38 @@ def sample_exec(path: str, a: SparseMatrix, b: torch.Tensor,
         out = paths.sample_blocks(full, coo.rows, coo.cols, coo.bm, coo.bn)
         return out.reshape(form.blocks.shape).to(b.dtype)
     raise ValueError(f"unknown sddmm path {path!r}")
+
+
+# The ell path samples at A's pattern (K3's pattern kernel) from this K
+# up, and every cell (K3's streaming kernel) below it: on graph (a) of
+# chip_smoke.py the pattern kernel is the faster at K = 16, the streaming
+# kernel at K = 2, 4 and 8 (PERF.md, findings)
+PATTERN_MIN_K = 16
+
+
+def sample_pattern_exec(path: str, a: SparseMatrix, b: torch.Tensor,
+                        c: torch.Tensor) -> torch.Tensor:
+    """Raw sampled dots for a caller that masks them with A's pattern
+    (``read_values(a, path) != 0``): at every stored nonzero they equal
+    ``sample_exec``'s, bit for bit; elsewhere they are 0 or the dot.
+
+    On the ell path at K >= ``PATTERN_MIN_K`` K3 at the pattern computes
+    only the cells of ``a.tile_occupancy()`` (built once per matrix) and
+    writes 0 elsewhere; otherwise this is ``sample_exec``.  ``c`` may be
+    a transposed view (the rules pass ``h.T``, ``v.T``): the pattern
+    kernel reads its transpose without a copy.
+    """
+    if path != PATH_ELL or b.shape[1] < PATTERN_MIN_K:
+        return sample_exec(path, a, b, c)
+    form_name = form_read_by(a, path)
+    form = a.form(form_name)
+    coo = paths.ell_to_coo(form) if form_name == "ell" else form
+    out = sddmm_pattern_kernel(
+        coo.rows, coo.cols, a.tile_occupancy(),
+        paths.pad_rows(b, coo.shape[0]).contiguous(),
+        paths.pad_rows(c.T, coo.shape[1]).T, block=(coo.bm, coo.bn),
+        out_dtype=torch.promote_types(coo.blocks.dtype, b.dtype))
+    return out.reshape(form.blocks.shape)
 
 
 def sddmm_values(path: str, a: SparseMatrix, b: torch.Tensor,
@@ -294,7 +331,7 @@ class SpMM(torch.autograd.Function):
             dh = spmm_exec(path, a.T, g).to(h.dtype)
             _record_vjp("spmm", path, "vjp: dH = Aᵀ @ ḡ (spmm backward)", a)
         if ctx.needs_input_grad[2]:
-            raw = sample_exec(path, a, g, h.T)
+            raw = sample_pattern_exec(path, a, g, h.T)
             _record_vjp("sddmm", path, "vjp: dA = pattern(A) ⊙ (ḡ @ Hᵀ) "
                         "(spmm backward is sddmm)", a)
             dvals = _mask_structural(vals, raw)
@@ -321,7 +358,7 @@ class SDDMMValues(torch.autograd.Function):
         ctx.path, ctx.a = path, a
         raw = None
         if ctx.needs_input_grad[2]:
-            raw = sample_exec(path, a, b, c)
+            raw = sample_pattern_exec(path, a, b, c)
             out = (vals.float() * raw.float()).to(
                 torch.promote_types(vals.dtype, b.dtype))
         else:
@@ -395,7 +432,7 @@ class SpMMEpilogue(torch.autograd.Function):
             _record_vjp("spmm", path, "vjp: dH = Aᵀ @ (ḡ ⊙ act') "
                         "(fused-epilogue spmm backward)", a)
         if needs[3]:
-            raw = sample_exec(path, a, dz, h.T)
+            raw = sample_pattern_exec(path, a, dz, h.T)
             _record_vjp("sddmm", path, "vjp: dA = pattern(A) ⊙ ((ḡ ⊙ act') "
                         "@ Hᵀ) (fused-epilogue spmm backward is sddmm)", a)
             dvals = _mask_structural(vals, raw)
@@ -446,14 +483,14 @@ class FusedAttention(torch.autograd.Function):
         form_name = form_read_by(a, path)
         mask = vals != 0
         g = g.contiguous()
-        raw = sample_exec(path, a, q, k.T).float()
+        raw = sample_pattern_exec(path, a, q, k.T).float()
         _record_vjp("sddmm", path, "vjp: recompute e = act(q kᵀ) at pattern "
                     "(fused attn backward)", a)
         e = torch.where(mask, apply_act(raw, act, slope), fat.NEG_INF)
         alpha = _form_row_softmax(a, form_name, e, mask)
         del e
         if need_q or need_k:
-            dalpha = sample_exec(path, a, g, v.T).float()
+            dalpha = sample_pattern_exec(path, a, g, v.T).float()
             _record_vjp("sddmm", path, "vjp: dα = ḡ Vᵀ at pattern (fused "
                         "attn backward is sddmm)", a)
             rowdot = (g.float() * out.float()).sum(dim=-1)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.device import resolve_device
 from repro_torch.dispatch.stats import MatrixStats
+from repro_torch.kernels.sddmm.ref import pack_occupancy
 from repro_torch.sparse import paths
 from repro_torch.sparse.plan import PlanCache
 
@@ -66,7 +67,7 @@ class SparseMatrix:
     """
 
     __slots__ = ("_forms", "shape", "stats", "_cache", "_transpose",
-                 "__weakref__")
+                 "_occupancy", "__weakref__")
 
     def __init__(self, forms: Dict[str, Any], shape: Tuple[int, int],
                  stats: Optional[MatrixStats],
@@ -84,6 +85,7 @@ class SparseMatrix:
         # the memoized transpose: a reference, or a weak one on the
         # transpose back to its source (no cycle keeps device memory alive)
         self._transpose: Any = None
+        self._occupancy: Optional[torch.Tensor] = None
 
     @classmethod
     def from_dense(cls, a, *, formats: Tuple[str, ...] = ("ell", "csr"),
@@ -204,6 +206,21 @@ class SparseMatrix:
                 forms.setdefault("coo", paths.transpose_coo(coo))
         return SparseMatrix(forms, (self.shape[1], self.shape[0]),
                             _transpose_stats(self.stats))
+
+    # -- pattern ------------------------------------------------------------
+
+    def tile_occupancy(self) -> torch.Tensor:
+        """The nonzero cells of each tile row of the blocked form the ell
+        path reads (``ell``, else ``coo``) as bit words (int32 [T, bm,
+        ceil(bn / 32)], tiles in Block-COO order; ``pack_occupancy``):
+        the pattern the backward masks with, ``values != 0``.  Built on
+        the matrix's device once and memoized (a fixed graph packs it
+        once)."""
+        if self._occupancy is None:
+            name = "ell" if self.has_form("ell") else "coo"
+            self._occupancy = pack_occupancy(values_of(name,
+                                                       self.form(name)))
+        return self._occupancy
 
     # -- conversions --------------------------------------------------------
 

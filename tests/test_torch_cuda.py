@@ -9,7 +9,11 @@ block_kv, q tiles cut by block_q, rescaled running maxima and empty
 block-rows, and for the f32 ones the longest causal rows of S = 32768,
 row by row against an f64 oracle at the 1e-4 row gate); K3 besides without a mask, on native bf16 / f16 operands,
 and its weighted launch bit for bit against the unweighted one times the
-values; K4 besides, exactly, against the tile kernel it replaced; K1/K5's streaming kernel at block fills 0 to 100 %,
+values; K3 at a pattern (K3p) at block fills 0 to 100 % with an
+all-padding block-row, K = 1 to 128, f32 / bf16 / f16, equal to its plain
+version, bit for bit to K3 without a mask at every set bit and exactly 0
+elsewhere, launched twice for equal bits; K4 besides, exactly, against
+the tile kernel it replaced; K1/K5's streaming kernel at block fills 0 to 100 %,
 all-padding and empty block-rows, ragged D, bm != bn, grids that the
 kernel splits over clusters of 2 and 4 CTAs, in f32, bf16 and f16,
 launched twice for equal bits; K2-K4 and K6-K8 on bf16
@@ -21,7 +25,7 @@ on the CPU.  For training: K1 / K2 at D = 1 and 2 and K3 / K4 at K = 16,
 backward of each ``torch.autograd.Function`` (SpMM, SDDMM, the fused
 epilogue and the fused attention) on the ell and sell paths against the
 same backward on the CPU (rtol 1e-4, atol 1e-5), A's values trained
-where the rule reads them, so ``dA`` runs through K3 / K4, with the
+where the rule reads them, so ``dA`` runs through K3p / K4, with the
 kernels each backward launches counted.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
@@ -55,8 +59,12 @@ from repro_torch.kernels.fused.spmm import (spmm_blockell_epilogue_kernel,
                                             spmm_sell_epilogue_ref,
                                             spmm_sell_epilogue_slots_ref)
 from repro_torch.kernels.sddmm.kernel import (launch_tiles,
-                                              sddmm_blockcoo_kernel)
-from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
+                                              sddmm_blockcoo_kernel,
+                                              sddmm_pattern_kernel)
+from repro_torch.kernels.sddmm.ref import (pack_occupancy,
+                                           sddmm_blockcoo_ref,
+                                           sddmm_pattern_ref,
+                                           unpack_occupancy)
 from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
                                             sddmm_sell_operands,
                                             sddmm_sell_slots_ref)
@@ -72,6 +80,7 @@ from repro_torch.models.gnn import (build_graph, graph_candidates, init_gat,
                                     init_gcn)
 from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
 from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse.paths import ell_to_coo
 from repro_torch.sparse.ops import fused_graph_attention, matmul, sddmm
 
 pytestmark = pytest.mark.cuda
@@ -478,6 +487,52 @@ def test_sddmm_kernel_without_mask(dev, dtype, block, k):
     weighted = sddmm_blockcoo_kernel(coo.rows, coo.cols, vals, b, c)
     assert weighted.dtype == dtype
     assert torch.equal(weighted, (vals.float() * dots.float()).to(dtype))
+
+
+def _bits(x):
+    """x's bit patterns, for comparisons that tell -0 from 0."""
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("dtype", [torch.float32, *NARROW])
+@pytest.mark.parametrize("block", SDDMM_BLOCKS)
+@pytest.mark.parametrize("k", [1, 3, 17, 48, 128])
+def test_sddmm_pattern_kernel(dev, fill, dtype, block, k):
+    """K3 at a pattern, over the Block-COO view of a Block-ELL form at
+    block fills 0 to 100 % with an all-padding block-row, B and C read
+    natively in ``dtype`` (C as a transposed view): against its plain
+    version (in ``dtype`` and in f32), and at every set bit equal, bit for
+    bit, to K3 without a mask (its streaming kernel at K <= 16 with tile
+    rows of whole vectors, its staged kernel otherwise), exact 0 at every
+    other cell; two launches give the same bits, each counted once."""
+    bm, bn = block
+    a = _sparse(k + 70, 301, 277, fill)
+    if fill == 1.0:
+        a[a == 0] = 1.0
+    a[bm:2 * bm] = 0.0
+    ell = BlockELL.from_dense(a, bm, bn, device=dev)
+    coo = ell_to_coo(ell)
+    occ = pack_occupancy(ell.blocks)
+    keep = coo.blocks != 0
+    assert torch.equal(unpack_occupancy(occ, bn), keep)
+    b = torch.randn(coo.shape[0], k, device=dev).to(dtype)
+    c = torch.randn(coo.shape[1], k, device=dev).to(dtype).T
+    ops = (coo.rows, coo.cols, occ, b, c)
+    for out in (dtype, torch.float32):
+        kw = dict(block=block, out_dtype=out)
+        before = sddmm_pattern_kernel.launches
+        got = sddmm_pattern_kernel(*ops, **kw)
+        again = sddmm_pattern_kernel(*ops, **kw)
+        assert sddmm_pattern_kernel.launches == before + 2
+        assert got.dtype == out
+        assert torch.equal(_bits(got), _bits(again))
+        torch.testing.assert_close(got, sddmm_pattern_ref(*ops, **kw),
+                                   **DTYPE_TOL[out])
+        every = sddmm_blockcoo_kernel(coo.rows, coo.cols, None, b,
+                                      c.contiguous(), **kw)
+        assert torch.equal(_bits(got[keep]), _bits(every[keep]))
+        assert not bool(_bits(got[~keep]).any())
 
 
 def _check_k4(sell, b, c):
@@ -954,16 +1009,19 @@ def test_sddmm_kernels_at_backward_widths(dev, block, k):
 RULES = ["spmm", "sddmm", "epilogue", "attention"]
 # the kernels a rule's backward launches on each path when every input,
 # A's values included, needs a gradient (dH, dk and dV run on the
-# transposed operand, which is plain PyTorch)
+# transposed operand, which is plain PyTorch); on the ell path dA at
+# K = 128 and dα are sampled at A's pattern (K3p), the score recompute at
+# K = 2 on every cell (K3)
 BACKWARD_LAUNCHES = {
-    ("spmm", "ell"): {"K3": 1}, ("spmm", "sell"): {"K4": 1},
+    ("spmm", "ell"): {"K3p": 1}, ("spmm", "sell"): {"K4": 1},
     ("sddmm", "ell"): {"K1": 1}, ("sddmm", "sell"): {"K2": 1},
-    ("epilogue", "ell"): {"K3": 1}, ("epilogue", "sell"): {"K4": 1},
-    ("attention", "ell"): {"K3": 2, "K1": 1},
+    ("epilogue", "ell"): {"K3p": 1}, ("epilogue", "sell"): {"K4": 1},
+    ("attention", "ell"): {"K3": 1, "K3p": 1, "K1": 1},
     ("attention", "sell"): {"K4": 2, "K2": 1},
 }
 BACKWARD_KERNELS = {"K1": spmm_blockell_kernel, "K2": spmm_sell_kernel,
-                    "K3": sddmm_blockcoo_kernel, "K4": sddmm_sell_kernel}
+                    "K3": sddmm_blockcoo_kernel, "K3p": sddmm_pattern_kernel,
+                    "K4": sddmm_sell_kernel}
 
 
 def _rule_grads(device, kind, rule):
