@@ -15,7 +15,11 @@ Phases, each of which must pass or the script exits non-zero:
      to the tile-granular plain versions of the same matrix); K1/K5's
      streaming kernel besides at block fills 0, 1 %, 10 % and 100 %, an
      all-padding block-row, D = 16, 48, 128 and 130, in f32, bf16 and f16,
-     launched twice for equal bits; K3/K4 at
+     launched twice for equal bits; N1 (the transposed SpMM, A's Block-ELL
+     blocks read in place) at the same fills with an empty block column,
+     D = 2, 16, 128 and 130, f32, bf16 and f16, launched twice for equal
+     bits, and K2 over Aᵀ's row view (the sell path's transposed SpMM)
+     against the element route, launched twice for equal bits; K3/K4 at
      K = 2 and 48 (K3 with a weighted mask, with none and on bf16
      operands; K4 on its slot operands, held
      besides, exactly, to the tile kernel gathered to slots, with padding
@@ -74,8 +78,13 @@ Phases, each of which must pass or the script exits non-zero:
             held to a dense f32 masked-softmax oracle; then 5 requests
             with ``fuse=False`` (no kernel: it samples on the csr
             pattern) in turns with 5 fused ones, held to the fused
-            logits, the two medians printed side by side; one more
-            request profiled, which must call neither tile-view helper.
+            logits, the two medians printed side by side, and the
+            unfused request's time and peak memory with A's dense array
+            memoized and with the memo emptied first; one more request
+            profiled, which must call neither tile-view helper.
+     After serving, the ``obs`` counters of the dispatcher and the plan
+     memo (``dispatch_plans_total``, ``plan_cache_{hits,misses}_total``),
+     which must not be empty.
   4. Block-sparse attention at gemma3-4b width (the port's
      ``configs.gemma3_4b.CONFIG``: 8 q heads on 4 kv heads, head dim 256,
      window 1024, 512 x 512 blocks), batch 1, q, k and v standard normal
@@ -111,10 +120,12 @@ Phases, each of which must pass or the script exits non-zero:
      nodes/s, the peak device memory of a step) and one profiled step.
      The loss must fall (but on ``LOSS_FLAT``), and each step's launches
      are asserted (``TRAIN_LAUNCHES``; they join the kernel rows'
-     launches).  On (a), GAT's first-step gradients must also equal, per
-     ``torch.equal``, those of the every-cell route (``PATTERN_MIN_K``
-     out of reach, so every sampled product runs K3 without a mask),
-     both steps under ``torch.use_deterministic_algorithms``.  Then the
+     launches).  The step held to the oracle is run once more, without
+     ``torch.use_deterministic_algorithms``, and every gradient must be
+     equal per ``torch.equal``.  On (a), GAT's first-step gradients must
+     also equal, per ``torch.equal``, those of the every-cell route
+     (``PATTERN_MIN_K`` out of reach, so every sampled product runs K3
+     without a mask), without and with deterministic mode.  Then the
      backward's kernels at their own shapes, each held to its plain
      version beside its bound and its library call: the SDDMM at K = 128
      (dα = ḡ Vᵀ) against ``sampled_addmm`` (on (a) K3 at the pattern, the
@@ -124,8 +135,9 @@ Phases, each of which must pass or the script exits non-zero:
      below 128 that set ``PATTERN_MIN_K`` (a step samples at 2 and 16);
      K4 on (b)), the
      SpMM (K1, K2) at D = 2 (GAT's dq) against ``torch.sparse.mm``, and
-     the plain dH = Aᵀ ḡ at D = 128 on the transposed operand beside
-     ``torch.sparse.mm`` on a CSR of Aᵀ.
+     the transposed SpMM at D = 128 (dH, dV) and D = 2 (dk), N1 on (a)
+     and K2 over Aᵀ's row view on (b), beside its bound, ``torch.sparse.mm``
+     on a CSR of Aᵀ and the plain route it replaced.
   6. A JSON line of the backward shapes, a JSON line of the kernels, the
      card line, and the final JSON line.
 
@@ -220,13 +232,14 @@ LOSS_FLAT = {("ell", "gcn")}
 # twice a layer (the score recompute at K = 2 and dα at K = D: 128, 128,
 # 16) and K1 / K2 once (dq); on (a) the sampling at K >= PATTERN_MIN_K
 # (dα) runs K3 at the pattern (K3p), the score recompute K3's streaming
-# kernel; every dH, dk and dV runs on the transposed operand,
-# plain PyTorch, and A's values take no gradient, so no dA is sampled
+# kernel; every transposed product runs N1 on (a) and K2 over Aᵀ's row
+# view on (b): GCN's dH once a layer, GAT's dk and dV once a layer each;
+# A's values take no gradient, so no dA is sampled
 TRAIN_LAUNCHES = {
-    ("ell", "gcn"): {"K5": 2, "K1": 1},
-    ("sell", "gcn"): {"K6": 2, "K2": 1},
-    ("ell", "gat"): {"K7": 3, "K3": 3, "K3p": 3, "K1": 3},
-    ("sell", "gat"): {"K8": 3, "K4": 6, "K2": 3},
+    ("ell", "gcn"): {"K5": 2, "K1": 1, "N1": 3},
+    ("sell", "gcn"): {"K6": 2, "K2": 4},
+    ("ell", "gat"): {"K7": 3, "K3": 3, "K3p": 3, "K1": 3, "N1": 6},
+    ("sell", "gat"): {"K8": 3, "K4": 6, "K2": 9},
 }
 SEED = 0
 N_NODES = 16384
@@ -262,6 +275,9 @@ KERNELS = {
            "src/repro/kernels/fused/attention.py:281"),
     "K9": ("bsattn_kernel", "src/repro_torch/csrc/bsattn.cu",
            "src/repro/kernels/bsattn/kernel.py:93"),
+    # no Pallas kernel: the reference's jnp route it takes the place of
+    "N1": ("spmm_blockell_t_kernel", "src/repro_torch/csrc/spmm_blockell_t.cu",
+           "src/repro/sparse/paths.py:162"),
 }
 ACTS = ("identity", "relu", "leaky_relu")
 
@@ -300,10 +316,11 @@ class Port:
         from repro_torch.kernels.sddmm import kernel as sddmm_kernel
         from repro_torch.kernels.sddmm import ref as sddmm_ref
         from repro_torch.kernels.sddmm import sell as sddmm_sell
-        from repro_torch.kernels.spmm import kernel, ref, sell
+        from repro_torch.kernels.spmm import kernel, ref, sell, transposed
         from repro_torch.models import gnn
+        from repro_torch import obs
         from repro_torch.serve import engine
-        from repro_torch.sparse import autodiff, ops, paths
+        from repro_torch.sparse import autodiff, matrix, ops, paths
         from repro_torch.train import gnn as train
 
         self.cfg = paper_gnn.CONFIG
@@ -324,7 +341,8 @@ class Port:
         self.Epilogue = Epilogue
         self.gnn, self.engine, self.train = gnn, engine, train
         self.ops, self.paths, self.dispatcher = ops, paths, dispatcher
-        self.autodiff = autodiff
+        self.autodiff, self.matrix = autodiff, matrix
+        self.transposed, self.obs = transposed, obs
         self.wrappers = {
             "K1": kernel.spmm_blockell_kernel,
             "K2": sell.spmm_sell_kernel,
@@ -336,6 +354,7 @@ class Port:
             "K7": attention.fused_attn_blockell_kernel,
             "K8": attention.fused_attn_sell_kernel,
             "K9": bsattn_kernel.bsattn_kernel,
+            "N1": transposed.spmm_blockell_t_kernel,
         }
 
     def reset_counts(self):
@@ -531,6 +550,89 @@ def ragged_checks_blockell(torch, np, port):
             "padding block-row; D = 16, 48, 128, 130; two launches equal "
             "bit for bit): max_abs_err "
             + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def transposed_sums_close(torch, port, name, got, want, ops) -> float:
+    """N1 against its plain version: sums of up to nbr*bm f32 terms in two
+    orders (the kernel's, list order then ascending row, and the plain
+    version's per-position einsum), held as ``ell_sums_close`` holds K1:
+    twice √n · eps · Σ|term| on top of the dtype's tolerance.  Returns the
+    largest error."""
+    torch.cuda.synchronize()
+    col_ptr, col_slots, blocks, h = ops
+    tol = KERNEL_TOL if got.dtype == torch.float32 else NARROW_TOL
+    mag = port.ref.spmm_blockell_t_ref(col_ptr, col_slots, blocks.abs(),
+                                       h.abs()).float()
+    diff = (got.float() - want.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
+        + 2 * torch.finfo(torch.float32).eps * h.shape[0] ** 0.5 * mag
+    worst = float((diff / bound).max()) if diff.numel() else 0.0
+    if got.shape != want.shape or got.dtype != want.dtype or worst > 1:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version, an element is {worst:.2f}x its "
+                             f"tolerance ({tol} + 2 eps √n Σ|term|)")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def ragged_checks_transposed(torch, np, port):
+    """Phase 2 for N1 (the transposed SpMM): block fills 0, 1 %, 10 % and
+    100 % with a padding block-row (padded slots) and an empty block
+    column, D = 2, 16, 128 and 130, f32, bf16 and f16, every launch twice
+    for equal bits; and K2 over Aᵀ's row view (the sell path's transposed
+    SpMM) against the element route, heavy rows of Aᵀ included."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    m, n, bm = 1000, 700, 64
+    n1 = port.wrappers["N1"]
+    for fill in BLOCKELL_FILLS:
+        a = np.where(rng.random((m, n)) < fill, rng.standard_normal((m, n)),
+                     0).astype(np.float32)
+        if fill == 1.0:
+            a[a == 0] = 1.0
+        a[bm:2 * bm] = 0.0  # block-row 1: padding slots only
+        a[:, bm:2 * bm] = 0.0  # block column 1: in no list
+        ell = port.BlockELL.from_dense(a, bm, bm, device=dev)
+        col_ptr, col_slots = port.transposed.blockell_columns(ell)
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for d in (2, 16, 128, 130):
+                ops = (col_ptr, col_slots, ell.blocks.to(dtype),
+                       torch.randn(ell.shape[0], d, device=dev).to(dtype))
+                what = f"N1 fill={fill} {dtype} d={d}"
+                got, again = n1(*ops), n1(*ops)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two launches gave "
+                                         "different bits")
+                if bool((got[bm:2 * bm] != 0).any()):
+                    raise AssertionError(f"{what}: the empty block column "
+                                         "is not 0")
+                err = transposed_sums_close(
+                    torch, port, what, got,
+                    port.ref.spmm_blockell_t_ref(*ops), ops)
+                key = str(dtype).split(".")[-1]
+                worst[key] = max(worst.get(key, 0.0), err)
+        log(f"ragged N1 {m}x{n} fill={fill} (W={ell.ell_width}, a padding "
+            "block-row, an empty block column; D = 2, 16, 128, 130; two "
+            "launches equal bit for bit): max_abs_err "
+            + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    a = np.where(rng.random((m, n)) < 0.003, rng.standard_normal((m, n)),
+                 0).astype(np.float32)
+    a[: 2 * port.heavy_nnz, 7] = 1.0  # a row of Aᵀ above the heavy count
+    sell = port.SellCS.from_dense(a, block=(bm, bm), device=dev)
+    for d in (2, 16, 128):
+        h = torch.randn(m, d, device=dev)
+        got, again = port.transposed.spmm_sell_t(sell, h), \
+            port.transposed.spmm_sell_t(sell, h)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 over Aᵀ's row view d={d}: two "
+                                 "launches gave different bits")
+        err = check_close(torch, f"K2 over Aᵀ's row view d={d}", got,
+                          port.paths.spmm_elements(
+                              sell.slot_cols, sell.slot_rows,
+                              sell.slot_vals, h, n))
+        log(f"ragged K2 over Aᵀ's row view {m}x{n} d={d} (heavy rows of "
+            f"Aᵀ {port.transposed.sell_t_operands(sell)[4].numel()}; two "
+            f"launches equal): max_abs_err vs the element route {err:.3e}")
 
 
 def ragged_checks_sddmm_attention(torch, np, port):
@@ -978,11 +1080,14 @@ def expected(port, per_call, calls):
     return {k: per_call.get(k, 0) * calls for k in port.wrappers}
 
 
-def measure(torch, name, run, plain, library, nbytes, flops, what):
-    """One kernel row: held to its plain version, timed beside it and
-    beside the library call (``library`` None: there is none), with the
-    bound from ``nbytes`` and ``flops``."""
-    err = check_close(torch, name, run(), plain())
+def measure(torch, name, run, plain, library, nbytes, flops, what,
+            close=None):
+    """One kernel row: held to its plain version (by ``close(name, got,
+    want)``, else ``check_close``), timed beside it and beside the library
+    call (``library`` None: there is none), with the bound from ``nbytes``
+    and ``flops``."""
+    close = close or (lambda *a: check_close(torch, *a))
+    err = close(name, run(), plain())
     row = dict(max_abs_err=err, ms=time_ms(torch, run),
                plain_ms=time_ms(torch, plain),
                library_ms=None if library is None else time_ms(torch, library))
@@ -1336,6 +1441,22 @@ def gat_phase(torch, port, graph, pattern, label, want_path, xs):
         f"{statistics.median(ulat):.3f} ms (fused: "
         f"{', '.join(f'{t:.3f}' for t in flat)}; unfused: "
         f"{', '.join(f'{t:.3f}' for t in ulat)})")
+    # the unfused request's time and peak memory beyond its inputs with
+    # A's dense array memoized (SparseMatrix.densify), and with the memo
+    # emptied first, which is what every request paid before the memo
+    seen = []
+    for memo in ("memoized", "emptied first"):
+        if memo != "memoized":
+            port.matrix._DENSE_MEMO.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (_,), (t,) = serve_requests(torch, unfused, [xs[0]])
+        seen.append(f"{memo}: {t:.3f} ms, peak beyond its inputs "
+                    f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f}"
+                    " GiB")
+    log(f"graph ({label}) GAT fuse=False request, densify memo " +
+        "; ".join(seen))
     calls = profile_request(torch, eng, xs[0], f"{label}, GAT")
     if any(calls.values()):
         raise AssertionError(f"graph ({label}) GAT request built tile data "
@@ -1419,6 +1540,8 @@ def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
         if abs(float(loss0) - want_loss) > ORACLE_RTOL * abs(want_loss):
             raise AssertionError(f"{what}: loss {float(loss0)} vs the "
                                  f"oracle's {want_loss}")
+        same_bits_again(torch, port, params, graph, x, labels, kind, grads,
+                        per_step, what)
         if (want_path, kind) == ("ell", "gat"):
             every_cell_grads_equal(torch, port, params, graph, x, labels,
                                    what)
@@ -1465,45 +1588,75 @@ def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
     return launches
 
 
+def same_bits_again(torch, port, params, graph, x, labels, kind, grads,
+                    per_step, what):
+    """The step held to the oracle, run once more without
+    ``torch.use_deterministic_algorithms``: every parameter's gradient
+    equal, per ``torch.equal`` (every kernel of the step, the transposed
+    products included, sums in one fixed order).  Its launches are
+    checked, not counted."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError(f"{what}: deterministic mode is on")
+    port.reset_counts()
+    again = port.train.loss_and_grads(params, graph, x, labels,
+                                      kind=kind)[2]
+    torch.cuda.synchronize()
+    if port.counts() != expected(port, per_step, 1):
+        raise AssertionError(f"{what}: the second run launched "
+                             f"{port.counts()}")
+    named = port.train.named_parameters
+    bad = [name for (name, g), (_, w) in zip(named(again), named(grads))
+           if not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"{what}: a second run of the step gave other "
+                             f"gradient bits, without deterministic mode: "
+                             f"{bad}")
+    log(f"{what}: the step run twice without deterministic mode gives "
+        f"equal gradients, torch.equal, all {len(named(grads))} parameters")
+
+
 def every_cell_grads_equal(torch, port, params, graph, x, labels, what):
     """The first step's gradients through the pattern route and through
     the every-cell route (``PATTERN_MIN_K`` out of reach: every sampled
-    product on K3 without a mask), equal per ``torch.equal``.  Both run
-    under ``torch.use_deterministic_algorithms`` (warnings only), so the
-    transposed products' ``index_add_`` sums in one order; their launches
-    are checked, not counted."""
+    product on K3 without a mask), equal per ``torch.equal``: without
+    deterministic mode (every transposed product runs N1), and again
+    under ``torch.use_deterministic_algorithms`` (warnings only).  Their
+    launches are checked, not counted."""
     autodiff = port.autodiff
     min_k = autodiff.PATTERN_MIN_K
     expect = {"pattern": expected(port, TRAIN_LAUNCHES["ell", "gat"], 1),
-              "every cell": expected(port, {"K7": 3, "K3": 6, "K1": 3}, 1)}
+              "every cell": expected(port, {"K7": 3, "K3": 6, "K1": 3,
+                                            "N1": 6}, 1)}
     was = torch.are_deterministic_algorithms_enabled()
     grads = {}
     try:
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            for route, k in (("pattern", min_k), ("every cell", 1 << 30)):
-                autodiff.PATTERN_MIN_K = k
-                port.reset_counts()
-                grads[route] = port.train.loss_and_grads(
-                    params, graph, x, labels, kind="gat")[2]
-                torch.cuda.synchronize()
-                if port.counts() != expect[route]:
-                    raise AssertionError(f"{what}: the {route} route "
-                                         f"launched {port.counts()}")
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode, warn_only=True)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for route, k in (("pattern", min_k),
+                                 ("every cell", 1 << 30)):
+                    autodiff.PATTERN_MIN_K = k
+                    port.reset_counts()
+                    grads[route, mode] = port.train.loss_and_grads(
+                        params, graph, x, labels, kind="gat")[2]
+                    torch.cuda.synchronize()
+                    if port.counts() != expect[route]:
+                        raise AssertionError(f"{what}: the {route} route "
+                                             f"launched {port.counts()}")
     finally:
         autodiff.PATTERN_MIN_K = min_k
         torch.use_deterministic_algorithms(was)
-    bad = [name for (name, g), (_, w) in zip(
-        port.train.named_parameters(grads["pattern"]),
-        port.train.named_parameters(grads["every cell"]))
-        if not torch.equal(g, w)]
+    named = port.train.named_parameters
+    want = named(grads["pattern", False])
+    bad = [(key, name) for key in grads
+           for (name, g), (_, w) in zip(named(grads[key]), want)
+           if not torch.equal(g, w)]
     if bad:
-        raise AssertionError(f"{what}: the pattern route's gradients differ "
-                             f"from the every-cell route's: {bad}")
+        raise AssertionError(f"{what}: the routes' gradients differ: {bad}")
     log(f"{what}: first-step gradients of the pattern route (K3p x3 + K3 "
         "x3) equal those of the every-cell route (K3 x6), torch.equal, "
-        "every parameter")
+        "every parameter, without and with deterministic mode")
 
 
 def profile_step(torch, port, step, per_step, what):
@@ -1612,9 +1765,9 @@ def pattern_rows(torch, port, graph, a_lib, gen):
 def backward_rows(torch, port, graph, want_path):
     """The kernels at the shapes a training step gives them, each held to
     its plain version beside its bound and its library call: the SDDMM
-    (K3p / K4) at K = 128 (dα = ḡ Vᵀ) and the SpMM (K1 / K2) at D = 2
-    (dq); and the plain dH = Aᵀ ḡ at D = 128 beside ``torch.sparse.mm`` on
-    a CSR of Aᵀ.  Returns the rows by name."""
+    (K3p / K4) at K = 128 (dα = ḡ Vᵀ), the SpMM (K1 / K2) at D = 2 (dq)
+    and the transposed SpMM (``transposed_rows``).  Returns the rows by
+    name."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     n, k, d = graph.n_nodes, port.cfg.hidden, 2
@@ -1666,30 +1819,72 @@ def backward_rows(torch, port, graph, want_path):
             f"rows={ops[0].shape[0]} nonzeros={nnz} D={d}; library: "
             "torch.sparse.mm")
         del args, ops
-    # dH = Aᵀ ḡ, plain PyTorch on the transposed operand (Block-COO on the
-    # ell path, the csr slot triplet on the sell path), beside the library
-    at = graph.adj.T
-    form = "coo" if want_path == "ell" else "csr"
-    g = torch.randn(n, k, device=dev, generator=gen)
-    run = lambda: port.autodiff.spmm_exec(want_path, at, g)  # noqa: E731
+    rows.update(transposed_rows(torch, port, graph, want_path, gen))
+    return rows
+
+
+def transposed_rows(torch, port, graph, want_path, gen):
+    """The transposed SpMM at the step's widths, D = 128 (dH, dV) and
+    D = 2 (dk): on (a) N1, held to its plain version; on (b) K2 over Aᵀ's
+    row view (with the per-call gather of the values), held to K2's plain
+    version; each beside its bound, ``torch.sparse.mm`` on a CSR of Aᵀ
+    and the plain route it replaced (``einsum`` + ``index_add_`` on the
+    transposed Block-COO, or the element route).  Returns the rows: "N1"
+    at D = 128 on (a), "N1 D=2", "K2 Aᵀ D=128", "K2 Aᵀ D=2"."""
+    dev = torch.device(DEVICE)
+    n, nnz = graph.n_nodes, graph.stats.nnz
+    paths, tr = port.paths, port.transposed
     lib_t = transposed_csr(torch, graph)
-    lib = lambda: torch.sparse.mm(lib_t, g)  # noqa: E731
-    err = float((run() - lib()).abs().max())
-    tol = oracle_tol(lib())
-    if err > tol:
-        raise AssertionError(f"dH = Aᵀ ḡ off torch.sparse.mm: {err:.3e}")
-    topo = at.form(form)
-    moved = nbytes_of(topo.blocks) if form == "coo" \
-        else nbytes_of(*topo)
-    dh_bound = bound(moved + nbytes_of(g) + n * k * 4,
-                     2 * graph.stats.nnz * k)[0]
-    rows["dH"] = dict(ms=time_ms(torch, run), library_ms=time_ms(torch, lib),
-                      bound_ms=dh_bound, max_abs_err=err)
-    log(f"dH = Aᵀ ḡ at D={k} on the transposed {form} operand (plain "
-        f"PyTorch, no kernel): {rows['dH']['ms']:.4f} ms | library "
-        f"torch.sparse.mm on a CSR of Aᵀ {rows['dH']['library_ms']:.4f} ms "
-        f"| bound {dh_bound:.4f} ms (bytes: the topology once, ḡ and dH) | "
-        f"max_abs_err {err:.3e}")
+    rows, at = {}, graph.adj.T
+    for d in (port.cfg.hidden, 2):
+        g = torch.randn(n, d, device=dev, generator=gen)
+        out_bytes = n * d * 4
+        library = lambda: torch.sparse.mm(lib_t, g)  # noqa: E731
+        if want_path == "ell":
+            ell = graph.adj.form("ell")
+            ops = (*tr.blockell_columns(ell), ell.blocks,
+                   paths.pad_rows(g, ell.shape[0]))
+            name = "N1" if d == port.cfg.hidden else f"N1 D={d}"
+            row = measure(
+                torch, f"N1 at D={d} (Aᵀ ḡ on A's Block-ELL blocks)",
+                lambda: port.wrappers["N1"](*ops),
+                lambda: port.ref.spmm_blockell_t_ref(*ops), library,
+                nbytes_of(*ops) + out_bytes, 2 * nnz * d,
+                f"nbc={ops[0].shape[0] - 1} list entries "
+                f"{ops[1].shape[0]} blocks {ell.bm}x{ell.bn} D={d}; {nnz} "
+                "nonzeros; library: torch.sparse.mm on a CSR of Aᵀ",
+                close=lambda *a: transposed_sums_close(torch, port, *a,
+                                                       ops))
+            coo = at.form("coo")
+            replaced = lambda: paths.spmm_coo(  # noqa: E731
+                coo, paths.pad_rows(g, coo.shape[1]))
+            old = "einsum + index_add_ on the transposed Block-COO"
+        else:
+            sell = graph.adj.form("sell")
+            row_slot, row_nnz, cols, perm, heavy = tr.sell_t_operands(sell)
+            ops = (row_slot, row_nnz, cols, sell.slot_vals[perm], g)
+            name = f"K2 Aᵀ D={d}"
+            row = measure(
+                torch, f"K2 over Aᵀ's row view at D={d} (with the gather "
+                "of the values)", lambda: tr.spmm_sell_t(sell, g),
+                lambda: port.sell.spmm_sell_slots_ref(*ops), library,
+                nbytes_of(row_slot, row_nnz, heavy, g) + nnz * (
+                    cols.element_size() + perm.element_size()
+                    + 2 * sell.slot_vals.element_size()) + out_bytes,
+                2 * nnz * d, f"rows={n} nonzeros={nnz} D={d}, "
+                f"{heavy.shape[0]} heavy rows; library: torch.sparse.mm "
+                "on a CSR of Aᵀ")
+            r, c, v = at.form("csr")
+            replaced = lambda: paths.spmm_elements(r, c, v, g, n)  # noqa
+            old = "gather + index_add_ on the transposed slot triplet"
+        row["replaced_ms"] = time_ms(torch, replaced)
+        rows[name] = row
+        log(f"  {name}: {row['replaced_ms'] / row['ms']:.2f}x faster than "
+            f"the plain route it replaced ({old}, {row['replaced_ms']:.4f} "
+            f"ms; not deterministic on CUDA); torch.sparse.mm takes "
+            f"{row['library_ms'] / row['ms']:.2f}x its time; "
+            f"{row['ms'] / row['bound_ms']:.2f}x its bound")
+        del g, ops
     return rows
 
 
@@ -1716,6 +1911,14 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     pattern = a_dense != 0
     del a_dense
     rows.update(gat_phase(torch, port, graph, pattern, label, want_path, xs))
+    counters = port.obs.snapshot()["metrics"]["counters"]
+    series = {name: counters.get(name, {}) for name in (
+        "dispatch_plans_total", "plan_cache_hits_total",
+        "plan_cache_misses_total")}
+    log(f"graph ({label}) obs counters after serving: {json.dumps(series)}")
+    if not all(series.values()):
+        raise AssertionError(f"graph ({label}): the dispatcher's or the "
+                             f"plan memo's obs counters are empty: {series}")
     peak = max(peak, torch.cuda.max_memory_allocated())
     log(f"graph ({label}) peak device memory {peak / 2**30:.2f} GiB")
     del pattern
@@ -1725,8 +1928,9 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     launches = train_phase(torch, np, port, graph, adj, xs[0], label,
                            want_path)
     backward = backward_rows(torch, port, graph, want_path)
-    if "K3p" in backward:
-        rows["K3p"] = dict(backward["K3p"], launches=0)
+    for name in ("K3p", "N1"):  # rows at the backward's shapes
+        if name in backward:
+            rows[name] = dict(backward[name], launches=0)
     for name, count in launches.items():
         if count and name not in rows:
             raise AssertionError(f"training on ({label}) launched {name}, "
@@ -2029,11 +2233,13 @@ def main() -> int:
     for inst, lines in sorted(ptxas_instances(
             logs["spmm_blockell"]).items()):  # K1/K5: none may spill
         log(f"  K1/K5 {inst}: " + "; ".join(lines))
-    if "spmm_blockell" in spills:
-        raise AssertionError("a K1/K5 instance spills")
+    for source in ("spmm_blockell", "spmm_blockell_t"):
+        if source in spills:
+            raise AssertionError(f"a {source} instance spills")
 
     ragged_checks(torch, np, port)
     ragged_checks_blockell(torch, np, port)
+    ragged_checks_transposed(torch, np, port)
     ragged_checks_sddmm_attention(torch, np, port)
     ragged_checks_pattern(torch, np, port)
     ragged_checks_bsattn(torch, np, port)

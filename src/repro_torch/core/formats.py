@@ -516,3 +516,52 @@ class SellCS:
                         self.slot_cols.cpu().numpy()),
                   self.slot_vals.cpu().numpy())
         return out
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful SELLPACK-like stream accounting (the paper's Fig. 8)
+# ---------------------------------------------------------------------------
+
+
+def sellpack_stream_elements(
+    csr: CSR, max_y_chunk: int, max_v_per_pe: int
+) -> int:
+    """Total (index,value)-pair count streamed in the paper's SELLPACK-like
+    format.
+
+    The host slices A into chunks of ``max_y_chunk`` rows.  Within a chunk,
+    the nonzeros of each row are re-bucketed by worker-row column range
+    (``max_v_per_pe`` wide).  Every bucket's stream carries one END_ROW
+    marker per *run* of row terminations (run-length encoded: consecutive
+    empty rows collapse into a single END_ROW pair), and all streams in a
+    chunk are padded with NULLs to the chunk's longest stream.
+    """
+    m, n = csr.shape
+    n_buckets = _cdiv(n, max_v_per_pe)
+    total = 0
+    for c0 in range(0, m, max_y_chunk):
+        c1 = min(c0 + max_y_chunk, m)
+        # per-bucket stream length for this chunk
+        lengths = np.zeros(n_buckets, dtype=np.int64)
+        # nonzero counts: bucket each row's column indices
+        prev_emitted_end = np.zeros(n_buckets, dtype=bool)
+        for r in range(c0, c1):
+            lo, hi = csr.indptr[r], csr.indptr[r + 1]
+            cols = csr.indices[lo:hi]
+            counts = np.bincount(cols // max_v_per_pe, minlength=n_buckets)
+            lengths += counts
+            # END_ROW run-length coding: a bucket that receives nonzeros for
+            # this row must emit an END_ROW afterwards; a bucket receiving
+            # nothing extends the previous END_ROW run (no new element).
+            has_data = counts > 0
+            new_end = has_data | ~prev_emitted_end
+            lengths += new_end.astype(np.int64)
+            prev_emitted_end = np.ones(n_buckets, dtype=bool)
+        total += int(lengths.max()) * n_buckets  # NULL-padded to equal length
+    return total
+
+
+def blockell_stream_elements(ell: BlockELL) -> int:
+    """Elements (index or value words) resident in the Block-ELL layout —
+    the blocked analog of the paper's streamed-element count."""
+    return int(np.prod(ell.blocks.shape)) + int(np.prod(ell.indices.shape))

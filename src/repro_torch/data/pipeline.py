@@ -1,9 +1,22 @@
-"""Synthetic graph generator (the port's copy of
-``repro.data.pipeline.random_graph``; numpy only, same draws for the
-same seed)."""
+"""Synthetic sparse matrices and graphs (the port's copy of
+``repro.data.pipeline.random_sparse_dense`` and ``random_graph``; numpy
+only, same draws for the same seed)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+
+def random_sparse_dense(n: int, density: float, seed: int = 0,
+                        m: Optional[int] = None) -> np.ndarray:
+    """Random N x N (or M x N) matrix with the given density — the paper's
+    synthetic workload ("random sparse and dense matrices, K=N")."""
+    m = m or n
+    rng = np.random.default_rng(seed)
+    mask = rng.random((m, n)) < density
+    vals = rng.normal(size=(m, n)).astype(np.float32)
+    return np.where(mask, vals, 0.0).astype(np.float32)
 
 
 def random_graph(n_nodes: int, avg_degree: float, seed: int = 0,

@@ -4,6 +4,8 @@ of the planning half of ``repro.dispatch.dispatcher``).
 A plan names the execution path, chosen by a forced policy or by the
 analytic cost model.  ``use_kernel`` records whether the path runs the
 CUDA kernels, which is so exactly when the operand lives on a CUDA device.
+Every recorded plan counts in ``obs.counter("dispatch_plans_total", op=,
+path=, policy=)``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
 from repro_torch.dispatch.policy import (PATH_FUSED_ATTN, PATHS,
                                          POLICY_AUTO, POLICY_AUTOTUNE,
@@ -73,10 +76,26 @@ def clear_log() -> None:
         _LOG.clear()
 
 
+def log_capacity() -> int:
+    return _LOG.maxlen or 0
+
+
+def set_log_capacity(capacity: int) -> None:
+    """Resize the plan ring (keeps the newest entries that still fit)."""
+    global _LOG
+    capacity = int(capacity)
+    if capacity < 1:
+        raise ValueError(f"log capacity must be >= 1, got {capacity}")
+    with _LOG_LOCK:
+        _LOG = collections.deque(_LOG, maxlen=capacity)
+
+
 def record_plan(plan: Plan) -> Plan:
-    """Append a plan to the dispatch log."""
+    """Append a plan to the dispatch log and count it."""
     with _LOG_LOCK:
         _LOG.append(plan)
+    obs.counter("dispatch_plans_total", op=plan.op, path=plan.path,
+                policy=plan.policy).inc()
     return plan
 
 

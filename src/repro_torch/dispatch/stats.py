@@ -112,3 +112,16 @@ class MatrixStats:
             sell_stored_elements=sell_slot_volume(row_nnz),
             **_structure_features((m, n), rows, cols, row_nnz),
         )
+
+
+def sparsity_bucket(density: float, per_decade: int = 2) -> int:
+    """Discretize density into log10 buckets for autotune cache keys.
+
+    ``per_decade`` buckets per density decade: densities within the same
+    bucket share one autotune measurement.  Density 0 maps to the last
+    bucket (hyper-sparse).
+    """
+    if density <= 0:
+        return 9 * per_decade
+    return int(np.clip(np.floor(-np.log10(density) * per_decade),
+                       0, 9 * per_decade))

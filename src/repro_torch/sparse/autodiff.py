@@ -21,10 +21,12 @@ products the rules sample are masked with A's pattern straight after, so
 they go through ``sample_pattern_exec``: on the ell path at K >=
 ``PATTERN_MIN_K`` that is K3 at the pattern, which computes only A's
 structural nonzeros.  The
-transposed ell operand is Block-COO and runs ``paths.spmm_coo``, the
-transposed sell operand its slot triplet as an element form, both plain
-PyTorch as in the reference.  Each rule that runs records a plan with
-``policy="vjp"`` in the dispatch log.
+transposed products (``dH``, ``dk``, ``dV``, ``dC``) run on ``A.T``: on
+the ell path N1 reads A's Block-ELL blocks in place, transposed; on the
+sell path K2 reads Aᵀ's row view; each sums in one fixed order, so two
+runs give equal bits (the reference's segment sums are deterministic
+too).  A transpose of a Block-COO form runs ``paths.spmm_coo``.  Each
+rule that runs records a plan with ``policy="vjp"`` in the dispatch log.
 
 Gradient semantics: each Function takes the *values tensor of the form
 the path reads* as an explicit input beside the path and the matrix, so a
@@ -52,6 +54,7 @@ from repro_torch.kernels.fused.epilogue import (Epilogue, act_grad_from_out,
 from repro_torch.kernels.fused.spmm import (spmm_blockell_fused,
                                             spmm_sell_fused)
 from repro_torch.kernels.sddmm.kernel import sddmm_pattern_kernel
+from repro_torch.memo import Table, memoized
 from repro_torch.sparse import paths
 from repro_torch.sparse.matrix import SparseMatrix, single_form, values_of
 
@@ -83,10 +86,15 @@ def spmm_exec(path: str, a: SparseMatrix, h: torch.Tensor) -> torch.Tensor:
         if a.has_form("ell"):
             ell = a.form("ell")
             return paths.spmm_ell(ell, paths.pad_rows(h, ell.shape[1]))[:m]
+        ell = a.transposed_form("ell")
+        if ell is not None:  # Aᵀ of a Block-ELL A: N1, A's blocks in place
+            return paths.spmm_ell_t(ell, paths.pad_rows(h, ell.shape[0]))[:m]
         coo = a.form("coo")
         return paths.spmm_coo(coo, paths.pad_rows(h, coo.shape[1]))[:m]
     if path == PATH_SELL and a.has_form("sell"):
         return paths.spmm_sell(a.form("sell"), h)
+    if path == PATH_SELL and a.transposed_form("sell") is not None:
+        return paths.spmm_sell_t(a.transposed_form("sell"), h)
     if path in (PATH_CSR, PATH_SELL):  # sell: a transposed sell operand
         r, c, v = a.form("csr")
         return paths.spmm_elements(r, c, v, h, m)
@@ -269,6 +277,27 @@ def _form_broadcast_rows(a: SparseMatrix, form_name: str,
     return by_row[form.rows.long()][:, :, None]  # coo: [nnzb, bm, 1]
 
 
+# each packed row's slot count (its width bucket's width), per SELL
+# structure
+_SELL_ROW_WIDTHS: Table = {}
+
+
+def _sell_row_sums(sell, vals: torch.Tensor) -> torch.Tensor:
+    """Each logical row's sum of its slot values [M], in a fixed order: a
+    packed row's slots are contiguous, so one segmented sum over the
+    packed rows' widths (``segment_reduce``: no atomics, unlike
+    ``index_add_`` on CUDA); rows in pruned slices read an appended 0."""
+    if not sell.buckets:  # no nonzero at all
+        return vals.new_zeros((sell.shape[0],))
+    widths = memoized(_SELL_ROW_WIDTHS, sell.slot_cols,
+                      (id(sell.out_gather), sell.buckets),
+                      lambda: torch.tensor(
+                          [w for _, n, w in sell.buckets for _ in range(n)],
+                          dtype=torch.long).to(vals.device))
+    packed = torch.segment_reduce(vals, "sum", lengths=widths)
+    return torch.cat([packed, packed.new_zeros(1)])[sell.out_gather.long()]
+
+
 def _form_row_softmax(a: SparseMatrix, form_name: str, e: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """Row softmax of masked scores ``e`` laid out like one form's values.
@@ -284,7 +313,8 @@ def _form_row_softmax(a: SparseMatrix, form_name: str, e: torch.Tensor,
         m = a.shape[0]
         mx = e.new_full((m,), fat.NEG_INF).scatter_reduce(0, rows, e, "amax")
         ex = e.sub_(mx[rows]).exp_().mul_(mask)
-        den = ex.new_zeros((m,)).index_add_(0, rows, ex)
+        den = _sell_row_sums(form, ex) if form_name == "sell" \
+            else ex.new_zeros((m,)).index_add_(0, rows, ex)
         return ex.div_(den[rows].clamp_min(fat.EPS))
     if form_name == "ell":
         mx = e.amax(dim=(1, 3))  # [nbr, bm]

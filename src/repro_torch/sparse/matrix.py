@@ -26,12 +26,30 @@ import torch
 
 from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
 from repro_torch.device import resolve_device
+from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
+from repro_torch.dispatch.policy import PATH_CSR, PATH_SELL
 from repro_torch.dispatch.stats import MatrixStats
 from repro_torch.kernels.sddmm.ref import pack_occupancy
+from repro_torch.memo import Table, memoized
 from repro_torch.sparse import paths
 from repro_torch.sparse.plan import PlanCache
 
 FORMATS = ("ell", "sell", "coo", "csr")
+# feature width assumed when from_dense(formats=None) prices the paths
+_AUTO_FORMAT_D = 256  # the paper's SpMM setting (§4.1)
+
+# Densified-form memo (the reference's), keyed weakly on the primary
+# form's values tensor; a hit needs the same form name, the same topology
+# tensors and the values' version counter unchanged (an in-place update
+# of the values must miss)
+_DENSE_MEMO: Table = {}
+
+
+def _dense_key(name: str, form) -> Tuple:
+    tensors = form if name == "csr" else [
+        getattr(form, f.name) for f in dataclasses.fields(form)]
+    return (name, values_of(name, form)._version,
+            tuple(id(t) for t in tensors if isinstance(t, torch.Tensor)))
 
 
 def values_of(name: str, form) -> torch.Tensor:
@@ -67,7 +85,7 @@ class SparseMatrix:
     """
 
     __slots__ = ("_forms", "shape", "stats", "_cache", "_transpose",
-                 "_occupancy", "__weakref__")
+                 "_occupancy", "_transposed_of", "__weakref__")
 
     def __init__(self, forms: Dict[str, Any], shape: Tuple[int, int],
                  stats: Optional[MatrixStats],
@@ -86,13 +104,24 @@ class SparseMatrix:
         # transpose back to its source (no cycle keeps device memory alive)
         self._transpose: Any = None
         self._occupancy: Optional[torch.Tensor] = None
+        # a transpose's source forms read in place (ell: N1, sell: K2 on
+        # Aᵀ's row view); not carried forms, so plans do not change
+        self._transposed_of: Dict[str, Any] = {}
 
     @classmethod
-    def from_dense(cls, a, *, formats: Tuple[str, ...] = ("ell", "csr"),
-                   block: Tuple[int, int] = (64, 64),
+    def from_dense(cls, a, *,
+                   formats: Optional[Tuple[str, ...]] = ("ell", "csr"),
+                   format: str = "auto", block: Tuple[int, int] = (64, 64),
                    ell_width: Optional[int] = None,
                    device="cuda") -> "SparseMatrix":
-        """Build the named forms from a dense host (numpy) matrix."""
+        """Build the named forms from a dense host (numpy) matrix.
+
+        ``formats=None`` carries the one form ``format`` names;
+        ``format="auto"`` (the reference's) measures the blocked structure
+        and picks the element form where the cost model predicts the
+        scalar path wins (hyper-sparsity), sell where it prices SELL-C-σ
+        cheapest, the blocked form otherwise.
+        """
         device = resolve_device(device)
         a = np.asarray(a)
         if a.ndim != 2:
@@ -101,6 +130,13 @@ class SparseMatrix:
         rows, cols = np.nonzero(a)
         stats = MatrixStats.from_coords(a.shape, rows, cols, block_m=bm,
                                         block_n=bn, nnz=len(rows))
+        if formats is None:
+            if format == "auto":
+                pick = CostModel.pick(
+                    DEFAULT_COST_MODEL.spmm_costs(stats, _AUTO_FORMAT_D))
+                format = {PATH_CSR: "csr", PATH_SELL: "sell"}.get(pick,
+                                                                  "ell")
+            formats = (format,)
         forms = {name: _build_form(name, a, block, ell_width, device,
                                    rows, cols) for name in formats}
         return cls(forms, a.shape, stats)
@@ -118,6 +154,12 @@ class SparseMatrix:
 
     def has_form(self, name: str) -> bool:
         return name in self._forms
+
+    def transposed_form(self, name: str):
+        """The ``ell`` or ``sell`` form of the matrix this one is the
+        transpose of (``A.T``), or None: the transposed SpMM reads it in
+        place, transposed."""
+        return self._transposed_of.get(name)
 
     def form(self, name: str):
         """The raw container of one carried form."""
@@ -179,7 +221,9 @@ class SparseMatrix:
         """The transpose, built once and memoized both ways (a fixed graph
         transposes once).  csr swaps its coordinates; sell becomes the csr
         slot triplet (padding slots repeat coordinates with zero values);
-        ell and coo become transposed Block-COO (views of the blocks)."""
+        ell and coo become transposed Block-COO (views of the blocks).  An
+        ell or sell source form is kept beside them for the transposed
+        SpMM (``transposed_form``)."""
         t = self._transpose
         if isinstance(t, weakref.ref):
             t = t()
@@ -204,8 +248,11 @@ class SparseMatrix:
             else:
                 coo = paths.ell_to_coo(form) if name == "ell" else form
                 forms.setdefault("coo", paths.transpose_coo(coo))
-        return SparseMatrix(forms, (self.shape[1], self.shape[0]),
-                            _transpose_stats(self.stats))
+        t = SparseMatrix(forms, (self.shape[1], self.shape[0]),
+                         _transpose_stats(self.stats))
+        t._transposed_of = {name: form for name, form in self._forms.items()
+                            if name in ("ell", "sell")}
+        return t
 
     # -- pattern ------------------------------------------------------------
 
@@ -226,21 +273,34 @@ class SparseMatrix:
 
     def densify(self) -> torch.Tensor:
         """Dense tensor on the matrix's device, from the primary form,
-        trimmed to the logical shape."""
+        trimmed to the logical shape.
+
+        Memoized while the values tensor lives and is not changed in place
+        (``_DENSE_MEMO``), so repeated dense-path dispatch pays the
+        scatter once; the result is shared and must not be written to.  A
+        result that carries an autograd graph is not memoized.
+        """
         name = self.format
         form = self._forms[name]
         m, n = self.shape
-        if name == "csr":
-            return paths.densify_elements(form[0], form[1], form[2], (m, n))
-        if name == "sell":
-            return paths.densify_sell(form)
-        full = paths.densify_ell(form) if name == "ell" \
-            else paths.densify_coo(form)
-        return full[:m, :n]
+
+        def build():
+            if name == "csr":
+                return paths.densify_elements(form[0], form[1], form[2],
+                                              (m, n))
+            if name == "sell":
+                return paths.densify_sell(form)
+            full = paths.densify_ell(form) if name == "ell" \
+                else paths.densify_coo(form)
+            return full[:m, :n]
+
+        return memoized(_DENSE_MEMO, values_of(name, form),
+                        _dense_key(name, form), build,
+                        keep=lambda out: not out.requires_grad)
 
     def to_dense(self) -> np.ndarray:
-        """Host numpy densification."""
-        return self.densify().cpu().numpy()
+        """Host numpy densification (a copy: ``densify`` is shared)."""
+        return np.array(self.densify().cpu())
 
     def to(self, fmt: str):
         """Convert to another format: a single-form ``SparseMatrix``

@@ -18,6 +18,7 @@ from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
 from repro_torch.kernels.sddmm.sell import sample_sell_blocked
 from repro_torch.kernels.spmm.ops import spmm_blockell
 from repro_torch.kernels.spmm.sell import spmm_sell_blocked
+from repro_torch.kernels.spmm import transposed
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +50,12 @@ def sddmm_element_dots(row_ids, col_ids, b, c):
 def spmm_ell(ell: BlockELL, h):
     """Y = A @ H with A in Block-ELL; H already padded to ell.shape[1]."""
     return spmm_blockell(ell, h)
+
+
+def spmm_ell_t(ell: BlockELL, h):
+    """Y = Aᵀ @ H with A in Block-ELL, its blocks read in place (N1);
+    H padded to ell.shape[0]."""
+    return transposed.spmm_blockell_t(ell, h)
 
 
 def spmm_coo(coo: BlockCOO, h):
@@ -100,6 +107,12 @@ def transpose_coo(coo: BlockCOO) -> BlockCOO:
 def spmm_sell(sell: SellCS, h):
     """Y = A @ H with A in SELL-C-σ; h carries the logical N rows."""
     return spmm_sell_blocked(sell, h)
+
+
+def spmm_sell_t(sell: SellCS, h):
+    """Y = Aᵀ @ H with A in SELL-C-σ (K2 on Aᵀ's row view); h carries
+    the logical M rows."""
+    return transposed.spmm_sell_t(sell, h)
 
 
 def sample_sell(sell: SellCS, b, c):

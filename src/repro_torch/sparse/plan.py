@@ -4,12 +4,16 @@
 The first ``A @ H`` for a given (op, width, policy, dtype, candidates,
 epilogue) key resolves a dispatch ``Plan`` and memoizes it on the matrix;
 every later call with the same key skips re-planning.  Each cache keeps
-its own hit/miss counters; the module-level counters aggregate them.
+its own hit/miss counters; the module-level counters aggregate them, and
+``obs`` counts them as ``plan_cache_hits_total`` /
+``plan_cache_misses_total``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Hashable, Optional
+
+from repro_torch import obs
 
 
 @dataclasses.dataclass
@@ -27,6 +31,11 @@ def plan_cache_stats() -> Dict[str, int]:
     return {"hits": GLOBAL_STATS.hits, "misses": GLOBAL_STATS.misses}
 
 
+def reset_plan_cache_stats() -> None:
+    GLOBAL_STATS.hits = 0
+    GLOBAL_STATS.misses = 0
+
+
 class PlanCache:
     """Mutable (key -> Plan) memo of one matrix."""
 
@@ -42,9 +51,11 @@ class PlanCache:
         if plan is None:
             self.misses += 1
             GLOBAL_STATS.misses += 1
+            obs.counter("plan_cache_misses_total").inc()
         else:
             self.hits += 1
             GLOBAL_STATS.hits += 1
+            obs.counter("plan_cache_hits_total").inc()
         return plan
 
     def put(self, key: Hashable, plan: Any) -> None:

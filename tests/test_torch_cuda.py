@@ -26,7 +26,14 @@ backward of each ``torch.autograd.Function`` (SpMM, SDDMM, the fused
 epilogue and the fused attention) on the ell and sell paths against the
 same backward on the CPU (rtol 1e-4, atol 1e-5), A's values trained
 where the rule reads them, so ``dA`` runs through K3p / K4, with the
-kernels each backward launches counted.
+kernels each backward launches counted (the transposed products on N1 or
+on K2 over Aᵀ's row view).  N1 (the transposed SpMM) against its plain
+version at every block fill, six block shapes, D = 2 to 130 and f32 /
+bf16 / f16, two launches equal bit for bit; K2 over Aᵀ's row view against
+the dense product and the CPU; and a GCN and a GAT training step on
+graphs of (a)'s and (b)'s structure run twice without
+``torch.use_deterministic_algorithms``, every gradient equal per
+``torch.equal``.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -70,7 +77,12 @@ from repro_torch.kernels.sddmm.sell import (sddmm_sell_kernel,
                                             sddmm_sell_slots_ref)
 from repro_torch.kernels.spmm.kernel import (launch_blockell,
                                              spmm_blockell_kernel)
-from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+from repro_torch.kernels.spmm.ref import (spmm_blockell_ref,
+                                          spmm_blockell_t_ref)
+from repro_torch.kernels.spmm.transposed import (blockell_columns,
+                                                 sell_t_operands,
+                                                 spmm_blockell_t_kernel,
+                                                 spmm_sell_t)
 from repro_torch.kernels.spmm.sell import (sell_row_operands,
                                            sell_tile_blocks,
                                            spmm_sell_kernel,
@@ -1008,20 +1020,22 @@ def test_sddmm_kernels_at_backward_widths(dev, block, k):
 
 RULES = ["spmm", "sddmm", "epilogue", "attention"]
 # the kernels a rule's backward launches on each path when every input,
-# A's values included, needs a gradient (dH, dk and dV run on the
-# transposed operand, which is plain PyTorch); on the ell path dA at
-# K = 128 and dα are sampled at A's pattern (K3p), the score recompute at
-# K = 2 on every cell (K3)
+# A's values included, needs a gradient: the transposed products (dH, dC,
+# dk, dV) on N1 (ell) or K2 over Aᵀ's row view (sell); on the ell path dA
+# at K = 128 and dα are sampled at A's pattern (K3p), the score recompute
+# at K = 2 on every cell (K3)
 BACKWARD_LAUNCHES = {
-    ("spmm", "ell"): {"K3p": 1}, ("spmm", "sell"): {"K4": 1},
-    ("sddmm", "ell"): {"K1": 1}, ("sddmm", "sell"): {"K2": 1},
-    ("epilogue", "ell"): {"K3p": 1}, ("epilogue", "sell"): {"K4": 1},
-    ("attention", "ell"): {"K3": 1, "K3p": 1, "K1": 1},
-    ("attention", "sell"): {"K4": 2, "K2": 1},
+    ("spmm", "ell"): {"K3p": 1, "N1": 1}, ("spmm", "sell"): {"K4": 1,
+                                                             "K2": 1},
+    ("sddmm", "ell"): {"K1": 1, "N1": 1}, ("sddmm", "sell"): {"K2": 2},
+    ("epilogue", "ell"): {"K3p": 1, "N1": 1},
+    ("epilogue", "sell"): {"K4": 1, "K2": 1},
+    ("attention", "ell"): {"K3": 1, "K3p": 1, "K1": 1, "N1": 2},
+    ("attention", "sell"): {"K4": 2, "K2": 3},
 }
 BACKWARD_KERNELS = {"K1": spmm_blockell_kernel, "K2": spmm_sell_kernel,
                     "K3": sddmm_blockcoo_kernel, "K3p": sddmm_pattern_kernel,
-                    "K4": sddmm_sell_kernel}
+                    "K4": sddmm_sell_kernel, "N1": spmm_blockell_t_kernel}
 
 
 def _rule_grads(device, kind, rule):
@@ -1076,3 +1090,111 @@ def test_backward_on_card_matches_cpu(dev, kind, rule):
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
                                    msg=f"{rule} {kind} input {i}")
+
+
+# ---------------------------------------------------------------------------
+# N1, the transposed SpMM, and the training step's bits
+# ---------------------------------------------------------------------------
+
+T_BLOCKS = [(64, 64), (64, 32), (32, 64), (128, 128), (5, 7), (48, 30)]
+T_WIDTHS = [2, 16, 128, 130]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("block", T_BLOCKS)
+@pytest.mark.parametrize("d", T_WIDTHS)
+def test_transposed_spmm_kernel(dev, dtype, fill, block, d):
+    """N1 against its plain version at block fills 0 to 100 %, with an
+    all-padding block-row (padded slots) and an empty block column, blocks
+    whose bytes are not a multiple of 16 (copied by the producer's lanes),
+    D = 2 (the lanes of a group split the rows), 16, 128 and 130 (two
+    D-tiles), f32 / bf16 / f16; two launches equal bit for bit, the empty
+    block column exactly 0."""
+    bm, bn = block
+    a = _sparse(d + bm + bn, 301, 277, fill)
+    if fill == 1.0:
+        a[a == 0] = 1.0
+    a[bm:2 * bm] = 0.0
+    a[:, bn:2 * bn] = 0.0
+    ell = BlockELL.from_dense(a, bm, bn, device=dev)
+    col_ptr, col_slots = blockell_columns(ell)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    h = torch.randn(ell.shape[0], d, device=dev, generator=gen).to(dtype)
+    ops = (col_ptr, col_slots, ell.blocks.to(dtype), h)
+    before = spmm_blockell_t_kernel.launches
+    got = spmm_blockell_t_kernel(*ops)
+    again = spmm_blockell_t_kernel(*ops)
+    assert spmm_blockell_t_kernel.launches == before + 2
+    want = spmm_blockell_t_ref(*ops)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, again)
+    assert bool((got[bn:2 * bn] == 0).all())
+    # the plain version's sums over up to nbr * bm terms, in another order
+    mag = spmm_blockell_t_ref(col_ptr, col_slots, ops[2].abs(), h.abs())
+    eps = torch.finfo(torch.float32).eps
+    tol = DTYPE_TOL[dtype]
+    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
+        + 2 * eps * ell.shape[0] ** 0.5 * mag.float()
+    worst = float(((got.float() - want.float()).abs() / bound).max())
+    assert worst <= 1, f"an element is {worst:.2f}x its tolerance"
+
+
+@pytest.mark.parametrize("d", [2, 16, 128])
+def test_transposed_sell_row_view_on_card(dev, d):
+    """K2 over Aᵀ's row view against the element route on the card (the
+    reference's: the swapped slot triplet) and against the CPU, heavy rows
+    of Aᵀ included; two launches equal bit for bit."""
+    a = _sparse(d, 301, 277, 0.004)
+    a[:200, 7] = 1.0  # a column of A above SELL_HEAVY_ROW_NNZ nonzeros
+    sell = SellCS.from_dense(a, block=(64, 64), device=dev)
+    assert sell_t_operands(sell)[4].numel() == 1
+    h = torch.randn(301, d, device=dev)
+    before = spmm_sell_kernel.launches
+    got, again = spmm_sell_t(sell, h), spmm_sell_t(sell, h)
+    assert spmm_sell_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    want = torch.from_numpy(a).to(dev).T @ h
+    torch.testing.assert_close(got, want, **TOL)
+    cpu = SellCS.from_dense(a, block=(64, 64), device="cpu")
+    torch.testing.assert_close(got.cpu(), spmm_sell_t(cpu, h.cpu()), **TOL)
+
+
+def _training_grads(graph, kind, params, x, labels):
+    from repro_torch.train import gnn as train
+
+    _, _, grads = train.loss_and_grads(params, graph, x, labels, kind=kind)
+    return [g for _, g in train.named_parameters(grads)]
+
+
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+@pytest.mark.parametrize("graph_kind", ["ell", "sell"])
+def test_training_step_gradients_are_reproducible(dev, kind, graph_kind):
+    """One training step run twice on the card, without
+    ``torch.use_deterministic_algorithms``, gives equal gradients bit for
+    bit (``torch.equal``) for every parameter: every transposed product
+    sums in one fixed order (N1 / K2), as every other kernel does.  Graphs
+    of (a)'s and (b)'s structure at 4096 nodes."""
+    from repro_torch.configs.paper_gnn import CONFIG
+    from repro_torch.train import gnn as train
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    n = 4096
+    rng = np.random.default_rng(7)
+    adj = (rng.random((n, n)) < 0.1).astype(np.float32) \
+        if graph_kind == "ell" else random_graph(n, 16, seed=1)
+    graph = build_graph(adj, CONFIG, device=dev)
+    x = torch.from_numpy(rng.standard_normal(
+        (n, CONFIG.in_features)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(train.planted_labels(n, CONFIG.n_classes)) \
+        .to(dev)
+    params = train.init_params(kind, CONFIG, seed=0, device=dev)
+    transposed = spmm_blockell_t_kernel if graph_kind == "ell" \
+        else spmm_sell_kernel
+    before = transposed.launches
+    first = _training_grads(graph, kind, params, x, labels)
+    second = _training_grads(graph, kind, params, x, labels)
+    assert transposed.launches > before  # the step's path is graph_kind's
+    assert len(first) == len(second) > 0
+    for i, (g, h) in enumerate(zip(first, second)):
+        assert torch.equal(g, h), f"{kind} on {graph_kind}: gradient {i}"

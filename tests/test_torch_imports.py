@@ -1,7 +1,10 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -9,6 +12,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the port's subpackages, each checked by importing it alone
+SUBPACKAGES = ("core", "corpus", "data", "dispatch", "kernels", "models",
+               "obs", "resilience", "serve", "sparse", "train")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -38,3 +44,18 @@ def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_imports_alone(sub):
+    """Each subpackage is in the files checked above, and importing it in a
+    fresh interpreter loads neither JAX nor ``repro``."""
+    assert any(p.parent.name == sub for p in PORT_FILES)
+    code = (f"import sys, repro_torch.{sub}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
