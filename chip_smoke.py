@@ -138,8 +138,41 @@ Phases, each of which must pass or the script exits non-zero:
      the transposed SpMM at D = 128 (dH, dV) and D = 2 (dk), N1 on (a)
      and K2 over Aᵀ's row view on (b), beside its bound, ``torch.sparse.mm``
      on a CSR of Aᵀ and the plain route it replaced.
-  6. A JSON line of the backward shapes, a JSON line of the kernels, the
-     card line, and the final JSON line.
+  6. Batched and continuous GNN serving and the DeltaGraph overlay, each
+     run's launches counted between counts set to 0 and read, every
+     output held to a dense f32 oracle, and failing if any
+     ``resilience_*`` counter (retry, degrade, quarantine, shed, restart)
+     moves:
+       (6a) ``BatchServingEngine.for_gcn`` at bench_serve's full settings
+            (12 graphs of 40-720 nodes, avg degree 4; 512 requests;
+            max_batch 1, 8 and 32; a 4 ms window) with ``CONFIG``'s widths
+            on 16 x 16 blocks, at ``form="auto"`` (its plans printed: csr
+            on this traffic, no kernel) and ``form="ell"`` (K5 x2 + K1 per
+            executed batch); per run a warm pass, a timed pass (req/s,
+            p50 / p99, the padding ledger, steady compiles 0), a profiled
+            pass (device busy) and one group run twice (equal bits
+            required on ell, recorded on csr); then K5 / K1 at 16 x 16 over
+            a 32-graph composition with bucket padding and one
+            ``batch_sddmm`` at K = 2 over it (K3 x1, also held to the
+            per-graph samples);
+       (6b) ``ContinuousBatchEngine.for_gcn`` at bench_serve_adaptive's
+            full settings (in 128, hidden 64, 2 layers, 16 x 16 blocks;
+            three drifting phases of 288 requests, seed 7; slots 4,
+            adaptive, a 40 ms window, ``form="ell"``): warm passes until
+            one compiles nothing, then a timed pass that must compile
+            nothing (K5 + K1 per lane step);
+       (6c) ``DeltaGraph(form="sell")`` (c 16, sigma 0, 8 x 8 tiles,
+            width_slack 2) over graph (b)'s normalized adjacency: batches
+            of seeded value updates, deletes and slack inserts into
+            materialized tiles, the last with one insert outside the
+            packing (exactly one repack); after each, ``matmul`` at
+            D = 128 (K2), a 2-layer GCN (K6, K2), ``sddmm`` at K = 2 (K4)
+            and a GAT layer (K8), then each kernel on the overlay's row
+            view held to its plain version, and the final state to a
+            rebuild from the final dense matrix.
+  7. A JSON line of the backward shapes, one of the serving shapes (phase
+     6's kernel rows and runs), a JSON line of the kernels, the card line,
+     and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -280,6 +313,23 @@ KERNELS = {
            "src/repro/sparse/paths.py:162"),
 }
 ACTS = ("identity", "relu", "leaky_relu")
+# phase 6a: bench_serve's full settings (12 graphs of 40-720 nodes, 512
+# requests, micro-batches of 1, 8 and 32, a 4 ms window), at both forms
+SERVE_GRAPHS = 12
+SERVE_REQUESTS = 512
+SERVE_BATCHES = (1, 8, 32)
+SERVE_DELAY_MS = 4.0
+SERVE_FORMS = ("auto", "ell")
+# phase 6b: bench_serve_adaptive's full settings (three drifting phases)
+ADAPTIVE_PER_PHASE = 288
+ADAPTIVE_PHASES = ((40, 160), (200, 900), (40, 900))
+# warm passes at most before the timed one (the first that compiles
+# nothing ends them; the timed pass must compile nothing)
+ADAPTIVE_WARM_PASSES = 5
+# phase 6c: batches of seeded deltas on graph (b)'s overlay; the last one
+# also inserts once outside the packing, which forces one repack
+DELTA_BATCHES = 3
+DELTA_UPDATES, DELTA_DELETES, DELTA_INSERTS = 2000, 1000, 1000
 
 
 def log(*args):
@@ -322,8 +372,12 @@ class Port:
         from repro_torch.serve import engine
         from repro_torch.sparse import autodiff, matrix, ops, paths
         from repro_torch.train import gnn as train
+        from repro_torch import batch
+        from repro_torch.serve import runtime
 
         self.cfg = paper_gnn.CONFIG
+        self.GNNConfig = paper_gnn.GNNConfig
+        self.batch, self.runtime = batch, runtime
         self.lm_cfg = gemma3_4b.CONFIG
         self.lm_attention = lm_attention
         self.bsattn, self.bsattn_kernel = bsattn_ops, bsattn_kernel
@@ -1055,7 +1109,7 @@ def profile_request(torch, eng, x, label):
 
 def log_device_time(prof, wall, what):
     """The device's busy share of ``wall`` ms and its largest items, from
-    a ``torch.profiler`` run."""
+    a ``torch.profiler`` run; returns the busy ms (None: not measured)."""
     dev_ms = {}
     for ev in prof.key_averages():
         if str(ev.device_type).endswith("CUDA"):
@@ -1067,12 +1121,13 @@ def log_device_time(prof, wall, what):
     if not dev_ms:
         log(f"{what}: the profiler saw no device time (device busy share "
             "not measured)")
-        return
+        return None
     busy = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
     log(f"{what}: wall {wall:.3f} ms under the profiler, device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f} %); by device time: "
         + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    return busy
 
 
 def expected(port, per_call, calls):
@@ -2182,6 +2237,663 @@ def bsattn_phase(torch, np, port):
     return {"K9": k9_row}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: batched and continuous GNN serving, and the DeltaGraph overlay
+# ---------------------------------------------------------------------------
+
+
+def resilience_counts(port) -> dict:
+    """Every ``resilience_*`` counter series (retries, degrades,
+    quarantines, sheds, worker restarts, recoveries)."""
+    counters = port.obs.REGISTRY.snapshot()["counters"]
+    return {k: dict(v) for k, v in counters.items()
+            if k.startswith("resilience_")}
+
+
+def lane_calls(port, ex, form: str) -> int:
+    """Executed batches of ``ex`` on ``form`` (the sentry's lane calls)."""
+    prefix = f"x{ex.uid}/"
+    return sum(v["calls"] for lane, v in port.obs.SENTRY.lanes().items()
+               if lane.startswith(prefix) and lane.endswith(f"/{form}"))
+
+
+def csr_tensor(torch, rows, cols, vals, shape):
+    """A torch CSR tensor of element triplets (zero entries kept)."""
+    return torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                   vals, shape).to_sparse_csr()
+
+
+def hold_requests(np, label, outs, oracle):
+    """Every request's logits (host arrays) finite, of the oracle's shape,
+    within ``ORACLE_RTOL`` x max|want| + ``ORACLE_ATOL``; returns the worst
+    error."""
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(outs, oracle)):
+        err = float(np.abs(got - want).max())
+        tol = ORACLE_RTOL * float(np.abs(want).max()) + ORACLE_ATOL
+        if got.shape != want.shape or not np.isfinite(got).all() \
+                or err > tol:
+            raise AssertionError(f"{label}: request {i} off the dense "
+                                 f"oracle: max_abs_err {err:.3e} > {tol:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def serve_run(torch, np, port, params, graphs, reqs, oracle, form,
+              max_batch):
+    """One ``BatchServingEngine.for_gcn`` run at bench_serve's settings:
+    a warm pass, a timed pass (launch counts set to 0 just before, read
+    just after), a profiled pass, and the same group run twice through
+    the executor for equal bits."""
+    label = f"6a form={form} max_batch={max_batch}"
+    scfg = port.engine.BatchServeConfig(max_batch=max_batch,
+                                        max_delay_ms=SERVE_DELAY_MS,
+                                        form=form, device=DEVICE)
+    with port.engine.BatchServingEngine.for_gcn(params, scfg=scfg) as eng:
+        ex = eng.executor
+        for g, x in reqs:                      # warm every executor
+            eng.submit(graphs[g], x)
+        eng.drain(timeout=600.0)
+        warm = ex.compiles
+        eng.reset_metrics()
+        ell0 = lane_calls(port, ex, "ell")
+        torch.cuda.synchronize()
+        port.reset_counts()
+        t0 = time.perf_counter()
+        futs = [eng.submit(graphs[g], x) for g, x in reqs]
+        outs = [f.result(timeout=600.0) for f in futs]
+        elapsed = time.perf_counter() - t0
+        counts = port.counts()
+        ell_batches = lane_calls(port, ex, "ell") - ell0
+        rep = eng.report()
+        steady = ex.compiles - warm
+        busy = profiled_pass(torch, eng, graphs, reqs, label)
+        group = reqs[:max_batch]
+        first = ex.run([graphs[g].adj for g, _ in group],
+                       [x for _, x in group])
+        again = ex.run([graphs[g].adj for g, _ in group],
+                       [x for _, x in group])
+        same_bits = all(np.array_equal(a, b) for a, b in zip(first, again))
+        plans = sorted({f"{b.label}: {p.path}"
+                        for (b, _), p in ex._bucket_plans.items()}) \
+            or ["every bucket: ell (form forced)"]
+    worst = hold_requests(np, label, outs, oracle)
+    want = expected(port, {"K5": 2, "K1": 1}, ell_batches)
+    waste = rep["executor"]["waste"]
+    log(f"{label}: {len(reqs) / elapsed:.1f} req/s (wall), p50 "
+        f"{rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} ms; compiles warm "
+        f"{warm}, steady {steady}; {rep['executor']['calls']} calls over "
+        f"{rep['executor']['buckets']} buckets; flushes {rep['flushes']}; "
+        f"padding {json.dumps({k: v for k, v in waste.items() if k != 'per_bucket'})}; "
+        f"logits vs dense f32 oracle max_abs_err {worst:.3e}; launches "
+        f"{counts} for {ell_batches} ell batches; one group run twice: "
+        f"{'the same bits' if same_bits else 'different bits'}")
+    log(f"{label}: plans {plans}")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    if rep["failed"] or steady:
+        raise AssertionError(f"{label}: {rep['failed']} failed, {steady} "
+                             "steady compiles")
+    if form == "ell" and not same_bits:
+        raise AssertionError(f"{label}: K5 / K1 gave different bits")
+    return {"req_per_s": len(reqs) / elapsed, "p50_ms": rep["p50_ms"],
+            "p99_ms": rep["p99_ms"], "warm_compiles": warm,
+            "steady_compiles": steady, "waste": {
+                k: v for k, v in waste.items() if k != "per_bucket"},
+            "device_busy": busy, "ell_batches": ell_batches,
+            "launches": {k: v for k, v in counts.items() if v},
+            "same_bits_twice": same_bits, "plans": plans}
+
+
+def profiled_pass(torch, eng, graphs, reqs, label):
+    """One more pass under ``torch.profiler``: the device's busy share of
+    its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        futs = [eng.submit(graphs[g], x) for g, x in reqs]
+        for f in futs:
+            f.result(timeout=600.0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = log_device_time(prof, wall, f"{label} profiled pass")
+    return None if busy is None else {"busy_ms": busy, "wall_ms": wall}
+
+
+def blockdiag_composition(torch, port, graphs, bucket, n_slots):
+    """``n_slots`` of the graphs in ``bucket`` (in turn) padded into it
+    and composed block-diagonally, in the ell and the csr form."""
+    mats = [g.adj for g in graphs
+            if port.batch.bucket_for(g.adj.stats) == bucket]
+    mats = [mats[i % len(mats)] for i in range(n_slots)]
+    forms = {f: port.batch.BatchedSparseMatrix.from_matrices(
+        [port.batch.pad_to_bucket(m, bucket, form=f) for m in mats],
+        formats=(f,)) for f in ("ell", "csr")}
+    return mats, forms
+
+
+def blockdiag_rows(torch, np, port, graphs, cfg):
+    """K5 and K1 at 16 x 16 over a 32-graph block-diagonal composition of
+    the largest bucket, and one ``batch_sddmm`` at K = 2 over it (K3),
+    each held to its plain version (K3 also to the per-graph results)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bucket = max((port.batch.bucket_for(g.adj.stats) for g in graphs),
+                 key=lambda b: (b.rows, b.nnz))
+    mats, forms = blockdiag_composition(torch, port, graphs, bucket,
+                                        SERVE_BATCHES[-1])
+    B = forms["ell"]
+    ell = B.matrix.form("ell")
+    rows_, cols_, vals_ = forms["csr"].matrix.form("csr")
+    a_lib = csr_tensor(torch, rows_, cols_, vals_, B.shape)
+    nnz = int((ell.blocks != 0).sum())
+    shape = (f"{B.n_graphs} graphs of bucket {bucket.label}; nbr="
+             f"{ell.n_block_rows} W={ell.ell_width} block 16x16; {nnz} "
+             "nonzeros")
+    # the bound reads only the real blocks: the bucket's pad slots hold
+    # zero blocks the product does not need
+    real_bytes = int(ell.nblocks.sum()) * ell.bm * ell.bn \
+        * ell.blocks.element_size()
+    rows = {}
+    for name, d, epi in (("K5", cfg.hidden, port.Epilogue(act="relu")),
+                         ("K1", cfg.n_classes, None)):
+        h = torch.randn(ell.shape[1], d, device=dev, generator=gen)
+        args = (ell.indices, ell.blocks, h) if epi is None \
+            else (ell.indices, ell.blocks, h, None, None)
+        kw = {} if epi is None else dict(epi=epi)
+        plain = port.ref.spmm_blockell_ref if epi is None \
+            else port.fused.spmm_blockell_epilogue_ref
+        rows[name] = measure(
+            torch, f"{name} 16x16 block-diagonal",
+            lambda: port.wrappers[name](*args, **kw),
+            lambda: plain(*args, **kw), lambda: torch.sparse.mm(a_lib, h),
+            nbytes_of(ell.indices, h) + real_bytes + ell.shape[0] * d * 4,
+            2 * nnz * d + (0 if epi is None else ell.shape[0] * d),
+            f"{shape}; D={d}; library: torch.sparse.mm")
+        full = nbytes_of(ell.indices, ell.blocks, h) + ell.shape[0] * d * 4
+        log(f"  {name} bytes with every slot's block (a diagnostic, not "
+            f"the bound): {full / 1e9:.4f} GB")
+        # a diagnostic: the same launch with every block-row cut to the
+        # widest real one (the bucket's pad slots sit past each graph's
+        # blocks), and its share of the slots
+        width = int(ell.nblocks.max())
+        cut = (ell.indices[:, :width].contiguous(),
+               ell.blocks[:, :width].contiguous(), *args[2:])
+        cut_ms = time_ms(torch, lambda: port.wrappers[name](*cut, **kw))
+        log(f"  {name} with the pad slots cut to W={width} "
+            f"({int(ell.nblocks.sum())} real blocks of "
+            f"{ell.n_block_rows * ell.ell_width} slots): {cut_ms:.4f} ms")
+    # K3: one batch_sddmm at K = 2 over the composition (the entry point)
+    k = 2
+    bs = [torch.randn(s.rows_logical, k, device=dev, generator=gen)
+          for s in B.segments]
+    cs = [torch.randn(k, s.cols_logical, device=dev, generator=gen)
+          for s in B.segments]
+    torch.cuda.synchronize()
+    port.reset_counts()
+    got = port.batch.batch_sddmm(B, bs, cs, policy="ell")
+    torch.cuda.synchronize()
+    counts = port.counts()
+    if counts != expected(port, {"K3": 1}, 1):
+        raise AssertionError(f"6a batch_sddmm launches {counts}")
+    err = 0.0
+    for part, m, b, c, seg in zip(got, mats, bs, cs, B.segments):
+        padded = port.batch.pad_to_bucket(m, bucket, form="ell")
+        want = padded.sddmm(port.paths.pad_rows(b, seg.rows),
+                            port.paths.pad_cols(c, seg.cols),
+                            policy="ell").data
+        err = max(err, check_close(torch, "6a batch_sddmm vs per graph",
+                                   part, want))
+    coo = port.paths.ell_to_coo(ell)
+    bp = torch.cat([port.paths.pad_rows(b, s.rows)
+                    for b, s in zip(bs, B.segments)])
+    cp = torch.cat([port.paths.pad_cols(c, s.cols)
+                    for c, s in zip(cs, B.segments)], dim=1).contiguous()
+    args = (coo.rows, coo.cols, coo.blocks, bp, cp)
+    cells = coo.nnzb * coo.bm * coo.bn
+    rows["K3"] = measure(
+        torch, "K3 16x16 block-diagonal (batch_sddmm's launch)",
+        lambda: port.wrappers["K3"](*args),
+        lambda: port.sddmm_ref.sddmm_blockcoo_ref(*args),
+        lambda: torch.sparse.sampled_addmm(a_lib, bp, cp, beta=0.0),
+        nbytes_of(coo.rows, coo.cols, coo.blocks, bp, cp) + cells * 4,
+        2 * k * cells + cells,
+        f"{shape}; K={k}; A's values as the mask; library: sampled_addmm "
+        "(unweighted)")
+    log(f"6a batch_sddmm: K3 x{counts['K3']}, {B.n_graphs} graphs held to "
+        f"their per-graph samples (max_abs_err {err:.3e})")
+    for name in ("K5", "K1", "K3"):
+        rows[name]["launches"] = counts[name] if name == "K3" else 0
+    return rows
+
+
+def batched_serving_phase(torch, np, port):
+    """Phase 6a: ``BatchServingEngine.for_gcn`` at bench_serve's full
+    settings (12 graphs of 40-720 nodes, 512 requests, max_batch 1 / 8 /
+    32, 4 ms window) with ``CONFIG``'s widths on 16 x 16 blocks, at
+    ``form="auto"`` and ``form="ell"``; then K5 / K1 / K3 at the
+    composition's shapes."""
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(port.cfg, block_m=16, block_n=16)
+    params = port.gnn.init_gcn(cfg, seed=SEED, device=DEVICE)
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(40, 720, size=SERVE_GRAPHS)
+    adjs = [port.random_graph(int(n), avg_degree=4, seed=i)
+            for i, n in enumerate(sizes)]
+    graphs = [port.gnn.build_graph(a, cfg, device=DEVICE) for a in adjs]
+    dense = [torch.from_numpy(normalized_dense(np, a)).to(dev) for a in adjs]
+    reqs, oracle = [], []
+    for i in range(SERVE_REQUESTS):
+        g = i % len(graphs)
+        x = torch.from_numpy(rng.normal(
+            size=(graphs[g].n_nodes, cfg.in_features)).astype(np.float32)) \
+            .to(dev)
+        reqs.append((g, x))
+        oracle.append(oracle_logits(torch, dense[g], params, x).cpu().numpy())
+    log(f"6a: graphs of {sorted(int(n) for n in sizes)} nodes (avg degree "
+        f"4), {SERVE_REQUESTS} requests, widths {cfg.in_features} -> "
+        f"{cfg.hidden} -> {cfg.hidden} -> {cfg.n_classes}, blocks 16x16")
+    runs = {}
+    totals = dict.fromkeys(port.wrappers, 0)
+    for form in SERVE_FORMS:
+        for mb in SERVE_BATCHES:
+            run = serve_run(torch, np, port, params, graphs, reqs, oracle,
+                            form, mb)
+            runs[f"{form}/b{mb}"] = run
+            for name, n in run["launches"].items():
+                totals[name] += n
+    rows = blockdiag_rows(torch, np, port, graphs, cfg)
+    for name in ("K5", "K1"):
+        rows[name]["launches"] = totals[name]
+    return rows, runs
+
+
+def adaptive_workload(torch, np, port, cfg, params):
+    """bench_serve_adaptive's drifting mix at its full settings: three
+    phases of ``ADAPTIVE_PER_PHASE`` requests (seed 7), each with 3 hot
+    sizes taking ~75 % of the requests and 8 tail sizes."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(7)
+    reqs = []
+    for p, (lo, hi) in enumerate(ADAPTIVE_PHASES):
+        hot = rng.integers(lo, hi, size=3)
+        tail = rng.integers(lo, hi, size=8)
+        graphs = {}
+        for i, n in enumerate(np.concatenate([hot, tail])):
+            adj = port.random_graph(int(n), avg_degree=4, seed=100 * p + i)
+            graphs[int(n)] = (port.gnn.build_graph(adj, cfg, device=DEVICE),
+                              torch.from_numpy(normalized_dense(np, adj))
+                              .to(dev))
+        for _ in range(ADAPTIVE_PER_PHASE):
+            pool = hot if rng.random() < 0.75 else tail
+            g, a = graphs[int(pool[rng.integers(len(pool))])]
+            x = torch.from_numpy(rng.normal(
+                size=(g.n_nodes, cfg.in_features)).astype(np.float32)).to(dev)
+            reqs.append((g, x, oracle_logits(torch, a, params, x)
+                         .cpu().numpy()))
+    return reqs
+
+
+def continuous_phase(torch, np, port):
+    """Phase 6b: ``ContinuousBatchEngine.for_gcn`` at bench_serve_adaptive's
+    full settings (in 128, hidden 64, 2 layers, 16 x 16 blocks; slots 4,
+    adaptive, 40 ms window, ``form="ell"``): a warm pass, then a timed
+    pass with its launches counted; steady compiles must be 0."""
+    cfg = port.GNNConfig(name="serve-adaptive", in_features=128, hidden=64,
+                         n_classes=4, n_layers=2, block_m=16, block_n=16)
+    params = port.gnn.init_gcn(cfg, seed=SEED, device=DEVICE)
+    reqs = adaptive_workload(torch, np, port, cfg, params)
+    ccfg = port.runtime.ContinuousConfig(slots=4, adaptive=True,
+                                         max_wait_ms=40.0, form="ell",
+                                         device=DEVICE)
+    with port.runtime.ContinuousBatchEngine.for_gcn(params, cfg=ccfg) as eng:
+        # warm passes (bench_serve_adaptive's: submit all, drain) until one
+        # compiles nothing: the ladder refits as the mix drifts within a
+        # pass, and its rungs settle only after a few passes
+        warm_passes = []
+        while len(warm_passes) < ADAPTIVE_WARM_PASSES:
+            c0 = eng.executor.compiles
+            for g, x, _ in reqs:
+                eng.submit(g, x)
+            eng.drain(timeout=600.0)
+            warm_passes.append(eng.executor.compiles - c0)
+            if not warm_passes[-1]:
+                break
+        warm = eng.executor.compiles
+        refits = eng.ladder.refits
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        port.reset_counts()
+        t0 = time.perf_counter()
+        futs = []
+        backlog = 8 * ccfg.slots
+        for g, x, _ in reqs:
+            futs.append(eng.submit(g, x))
+            while eng.pending() > backlog:
+                eng.step()
+        eng.drain(timeout=600.0)
+        outs = [f.result(timeout=600.0) for f in futs]
+        elapsed = time.perf_counter() - t0
+        counts = port.counts()
+        rep = eng.report()
+        steady = eng.executor.compiles - warm
+        lane_errs = lane_kernel_checks(torch, port, eng, reqs, cfg)
+    calls = rep["executor"]["calls"]
+    worst = hold_requests(np, "6b", outs, [o for _, _, o in reqs])
+    want = expected(port, {"K5": 1, "K1": 1}, calls)
+    waste = rep["executor"]["waste"]
+    ladder = rep["executor"]["ladder"]
+    occ = [v["occupancy"] for v in rep["lanes"].values()]
+    log(f"6b continuous: {len(reqs)} requests, {len(reqs) / elapsed:.1f} "
+        f"req/s (wall), p50 {rep['p50_ms']:.3f} ms, p99 {rep['p99_ms']:.3f} "
+        f"ms; compiles over the warm passes {warm_passes} ({warm} in all, "
+        f"ladder refits {refits}), steady {steady}; {calls} lane steps over "
+        f"{len(rep['lanes'])} lanes (occupancy mean "
+        f"{sum(occ) / max(len(occ), 1):.3f}); waste fraction "
+        f"{waste['waste_fraction']}; ladder refits {ladder['refits']}, "
+        f"fallbacks {ladder['fallbacks']}, snapped {ladder['snapped_rungs']};"
+        f" logits vs dense f32 oracle max_abs_err {worst:.3e}; launches "
+        f"{counts}")
+    if counts != want:
+        raise AssertionError(f"6b launches {counts}, expected {want}")
+    if steady or rep["failed"]:
+        raise AssertionError(f"6b: {steady} steady compiles, "
+                             f"{rep['failed']} failed")
+    return {"req_per_s": len(reqs) / elapsed, "p50_ms": rep["p50_ms"],
+            "p99_ms": rep["p99_ms"], "warm_compiles": warm,
+            "warm_passes": warm_passes, "steady_compiles": steady,
+            "lane_steps": calls,
+            "lanes": len(rep["lanes"]),
+            "lane_kernel_errs": lane_errs,
+            "waste_fraction": waste["waste_fraction"],
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def lane_kernel_checks(torch, port, eng, reqs, cfg):
+    """K5 at D = ``cfg.hidden`` (bias, relu) and K1 at D = ``cfg.n_classes``
+    through their wrappers on one composition of 6b's busiest lane (graphs
+    of its bucket padded in, the last slot an all-zero dummy), each held to
+    its plain version; returns their errors."""
+    dev = torch.device(DEVICE)
+    lane = max(eng._lanes.values(), key=lambda l: l.steps)
+    mats, seen = [], set()
+    for g, _, _ in reqs:
+        if len(mats) == len(lane.slots) - 1:
+            break
+        if id(g) not in seen and \
+                eng.executor.ladder.bucket_for(g.adj.stats) == lane.bucket:
+            seen.add(id(g))
+            mats.append(port.batch.pad_to_bucket(g.adj, lane.bucket,
+                                                 form=lane.form))
+    if not mats:
+        raise AssertionError(f"6b: no graph of the workload maps to lane "
+                             f"{lane.bucket.label}")
+    mats += [lane.dummy] * (len(lane.slots) - len(mats))
+    ell = port.batch.BatchedSparseMatrix.from_matrices(
+        mats, formats=("ell",), stats=lane.stats).matrix.form("ell")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    h = torch.randn(ell.shape[1], cfg.hidden, device=dev, generator=gen)
+    bias = torch.randn(cfg.hidden, device=dev, generator=gen)
+    epi = port.Epilogue(act="relu", has_bias=True)
+    ops5 = (ell.indices, ell.blocks, h, bias, None)
+    errs = {"K5": check_close(
+        torch, f"6b K5 D={cfg.hidden}", port.wrappers["K5"](*ops5, epi=epi),
+        port.fused.spmm_blockell_epilogue_ref(*ops5, epi=epi))}
+    h1 = torch.randn(ell.shape[1], cfg.n_classes, device=dev, generator=gen)
+    ops1 = (ell.indices, ell.blocks, h1)
+    errs["K1"] = check_close(torch, f"6b K1 D={cfg.n_classes}",
+                             port.wrappers["K1"](*ops1),
+                             port.ref.spmm_blockell_ref(*ops1))
+    log(f"6b lane {lane.bucket.label} ({len(seen)} graphs and "
+        f"{len(lane.slots) - len(seen)} dummy of {len(lane.slots)} slots; "
+        f"nbr={ell.n_block_rows} W={ell.ell_width}): K5 D={cfg.hidden} "
+        f"max_abs_err {errs['K5']:.3e}, K1 D={cfg.n_classes} max_abs_err "
+        f"{errs['K1']:.3e} against their plain versions")
+    return errs
+
+
+def delta_stream(np, rng, dg, cur, force_repack: bool):
+    """One batch of seeded deltas against the overlay's current packing:
+    value updates and deletes of live edges, inserts into materialized
+    tiles of rows with free slack (one a row), and with ``force_repack``
+    one insert into a tile the packing never materialized, last.
+    ``cur`` (the live dense matrix) is updated to match."""
+    ov = dg._overlay
+    edges = list(ov.edge_map)
+    pick = rng.permutation(len(edges))[:DELTA_UPDATES + DELTA_DELETES]
+    deltas = []
+    for j, e in enumerate(pick):
+        r, c = edges[e]
+        if j < DELTA_UPDATES:
+            v = float(cur[r, c]) * 1.5
+            deltas.append(("insert", r, c, v))
+            cur[r, c] = v
+        else:
+            deltas.append(("delete", r, c, 0.0))
+            cur[r, c] = 0.0
+    tiles_of = {}
+    for (cbr, bc) in ov.tiles_index:
+        tiles_of.setdefault(cbr, []).append(bc)
+    slack_rows = [p for p, free in ov.row_free.items() if free]
+    n = cur.shape[1]
+    for p in rng.permutation(len(slack_rows)):
+        if len(deltas) >= DELTA_UPDATES + DELTA_DELETES + DELTA_INSERTS:
+            break
+        p = slack_rows[p]
+        r = ov.packed_to_orig.get(p)
+        cols = tiles_of.get(ov.compact_of_pbr.get(p // ov.bm, -1))
+        if r is None or not cols:
+            continue
+        c = int(cols[rng.integers(len(cols))] * ov.bn + rng.integers(ov.bn))
+        if c < n and cur[r, c] == 0:
+            deltas.append(("insert", r, c, 0.05))
+            cur[r, c] = 0.05
+    if force_repack:
+        r = int(rng.integers(cur.shape[0]))
+        cbr = ov.compact_of_pbr.get(int(ov.out_gather_h[r]) // ov.bm, -1)
+        while True:
+            c = int(rng.integers(n))
+            if (cbr, c // ov.bn) not in ov.tiles_index and cur[r, c] == 0:
+                break
+        deltas.append(("insert", r, c, 0.05))
+        cur[r, c] = 0.05
+    return deltas
+
+
+def overlay_rows(torch, port, sell, a_lib, h, b, c, q_perm, kt, timed):
+    """K2, K6, K4 and K8 on the overlay's row view, each held to its plain
+    version (timed beside it, the library call and the bound, when
+    ``timed``)."""
+    heavy = sell.tile_heavy_rows
+    row_slot, row_nnz, slot_cols, slot_vals = \
+        port.sell.sell_row_operands(sell)
+    nnz = int(row_nnz.sum())  # the slots the row view reads
+    d = h.shape[1]
+    n_rows = row_slot.shape[0]
+    row_bytes = nbytes_of(row_slot, row_nnz, heavy) + nnz * 8
+    relu = port.Epilogue(act="relu")
+    kw_attn = dict(act="leaky_relu", slope=0.2)
+    aops = port.attention.fused_attn_sell_operands(sell)
+    sops = port.sddmm_sell.sddmm_sell_operands(sell)
+    specs = {
+        "K2": (lambda: port.wrappers["K2"](row_slot, row_nnz, slot_cols,
+                                           slot_vals, h, heavy_rows=heavy),
+               lambda: port.sell.spmm_sell_slots_ref(
+                   row_slot, row_nnz, slot_cols, slot_vals, h),
+               lambda: torch.sparse.mm(a_lib, h),
+               row_bytes + nbytes_of(h) + n_rows * d * 4, 2 * nnz * d,
+               "torch.sparse.mm"),
+        "K6": (lambda: port.wrappers["K6"](row_slot, row_nnz, slot_cols,
+                                           slot_vals, h, None, None,
+                                           epi=relu, heavy_rows=heavy),
+               lambda: port.fused.spmm_sell_epilogue_slots_ref(
+                   row_slot, row_nnz, slot_cols, slot_vals, h, None, None,
+                   epi=relu),
+               lambda: torch.sparse.mm(a_lib, h),
+               row_bytes + nbytes_of(h) + n_rows * d * 4,
+               2 * nnz * d + n_rows * d, "torch.sparse.mm"),
+        "K4": (lambda: port.wrappers["K4"](*sops, b, c),
+               lambda: port.sddmm_sell.sddmm_sell_slots_ref(*sops, b, c),
+               lambda: torch.sparse.sampled_addmm(a_lib, b, c, beta=0.0),
+               nbytes_of(row_slot, row_nnz, sops[2], b, c) + nnz * 4
+               + sell.n_slots * 4, 2 * b.shape[1] * nnz, "sampled_addmm"),
+        "K8": (lambda: port.wrappers["K8"](*aops, q_perm, kt, h,
+                                           heavy_rows=heavy, **kw_attn),
+               lambda: port.attention.fused_attn_sell_rows_ref(
+                   *aops, q_perm, kt, h, **kw_attn),
+               None,
+               row_bytes + nbytes_of(q_perm, kt, h) + n_rows * d * 4,
+               nnz * (2 * kt.shape[0] + 2 * d + 4), "none"),
+    }
+    rows = {}
+    for name, (run, plain, lib, nbytes, flops, lib_name) in specs.items():
+        width = f"K={b.shape[1]}" if name == "K4" else f"D={d}"
+        if timed:
+            rows[name] = measure(
+                torch, f"{name} on the DeltaGraph overlay", run, plain, lib,
+                nbytes, flops, f"rows={n_rows} slots={sell.n_slots} "
+                f"row-view slots={nnz} {width}; library: {lib_name}")
+        else:
+            rows[name] = {"max_abs_err": check_close(
+                torch, f"{name} on the DeltaGraph overlay", run(), plain())}
+    return rows
+
+
+def delta_phase(torch, np, port):
+    """Phase 6c: ``DeltaGraph(form="sell")`` with the reference's defaults
+    over graph (b); after each batch of seeded deltas, K2 (``matmul``,
+    D = 128), K6 and K2 (a 2-layer GCN), K4 (``sddmm``, K = 2) and K8 (a
+    GAT layer) through the entry points, counted, each held to a dense f32
+    oracle of the live matrix, then each kernel on the overlay's operands
+    held to its plain version; the final state held to a rebuild."""
+    dev = torch.device(DEVICE)
+    n = N_NODES
+    cur = normalized_dense(np, port.random_graph(n, 16, seed=1))
+    t0 = time.perf_counter()
+    dg = port.runtime.DeltaGraph(cur, form="sell", device=DEVICE)
+    log(f"6c DeltaGraph(form='sell', c=16, sigma=0, block=(8, 8), "
+        f"width_slack=2) over graph (b): capacity {dg.capacity} slots, "
+        f"{dg.live_nnz} live, {dg.free_slots()} free; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    d = port.cfg.hidden
+    h = torch.randn(n, d, device=dev, generator=gen)
+    b = torch.randn(n, 2, device=dev, generator=gen)
+    c = torch.randn(2, n, device=dev, generator=gen)
+    q = torch.randn(n, 2, device=dev, generator=gen)
+    k = torch.randn(n, 2, device=dev, generator=gen)
+    gcn = port.gnn.init_gcn(port.GNNConfig(n_layers=2, in_features=d,
+                                           hidden=d), seed=SEED,
+                            device=DEVICE)
+    gat = port.gnn.init_gat(port.GNNConfig(n_layers=1, in_features=d,
+                                           n_classes=d), seed=SEED,
+                            device=DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    totals = dict.fromkeys(port.wrappers, 0)
+    rows = {}
+    for batch in range(DELTA_BATCHES):
+        last = batch == DELTA_BATCHES - 1
+        deltas = delta_stream(np, rng, dg, cur, force_repack=last)
+        t0 = time.perf_counter()
+        dg.apply(deltas)
+        apply_s = time.perf_counter() - t0
+        if dg.repacks != int(last):
+            raise AssertionError(f"6c batch {batch}: {dg.repacks} repacks")
+        a = dg.matrix
+        torch.cuda.synchronize()
+        port.reset_counts()
+        y_spmm = port.ops.matmul(a, h, policy="sell")
+        g = port.gnn.Graph(adj=a, n_nodes=n)
+        y_gcn = port.gnn.gcn_forward(gcn, g, h)
+        s = port.ops.sddmm(a, b, c, policy="sell")
+        y_gat = port.gnn.gat_forward(gat, g, h)
+        torch.cuda.synchronize()
+        counts = port.counts()
+        want = expected(port, {"K2": 2, "K6": 1, "K4": 1, "K8": 1}, 1)
+        if counts != want:
+            raise AssertionError(f"6c batch {batch}: launches {counts}, "
+                                 f"expected {want}")
+        for name, count in counts.items():
+            totals[name] += count
+        a_dev = torch.from_numpy(cur).to(dev)
+        errs = {}
+        for what, got, oracle in (
+                ("spmm", y_spmm, lambda: a_dev @ h),
+                ("gcn", y_gcn, lambda: oracle_logits(torch, a_dev, gcn, h)),
+                ("sddmm", s.densify(),
+                 lambda: torch.where(a_dev != 0, a_dev * (b @ c), 0.0)),
+                ("gat", y_gat, lambda: gat_oracle(torch, a_dev != 0, gat,
+                                                  h))):
+            want_y = oracle()
+            errs[what] = float((got - want_y).abs().max())
+            if got.shape != want_y.shape or errs[what] > oracle_tol(want_y) \
+                    or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"6c batch {batch} {what} off the "
+                                     f"dense oracle: {errs[what]:.3e}")
+            del want_y
+        sell = a.form("sell")
+        q_perm = torch.cat([q, q.new_zeros((1, 2))])[sell.perm.long()]
+        # timed on the last patched overlay, before the repack packs the
+        # inserts back to the front of their rows
+        timed = batch == DELTA_BATCHES - 2
+        a_lib = a_dev.to_sparse_csr() if timed else None
+        del a_dev
+        kernel = overlay_rows(torch, port, sell, a_lib, h, b, c, q_perm,
+                              k.T, timed=timed)
+        if timed:
+            rows = kernel
+        launched = {k_: v for k_, v in counts.items() if v}
+        oracle_errs = {k_: f"{v:.3e}" for k_, v in errs.items()}
+        kernel_errs = {k_: f"{v['max_abs_err']:.3e}"
+                       for k_, v in kernel.items()}
+        log(f"6c batch {batch}: {len(deltas)} deltas applied in "
+            f"{apply_s:.2f} s ({dg.deltas_applied} in all, {dg.repacks} "
+            f"repack(s)); {dg.live_nnz} live of {dg.capacity} slots, the "
+            f"row view {int(sell.tile_row_nnz.sum())} slots, "
+            f"{int(sell.tile_heavy_rows.numel())} heavy rows; launches "
+            f"{launched}; vs the dense oracle {oracle_errs}; kernels vs "
+            f"their plain versions {kernel_errs}")
+        del a_lib
+        torch.cuda.empty_cache()
+    if not np.array_equal(dg.matrix.to_dense(), cur):
+        raise AssertionError("6c: the overlay's final state is not the "
+                             "live dense matrix")
+    rebuild = port.SellCS.from_dense(cur, c=16, sigma=0, block=(8, 8),
+                                     device=DEVICE)
+    err = check_close(torch, "6c overlay vs rebuild",
+                      port.ops.matmul(dg.matrix, h, policy="sell"),
+                      port.sell.spmm_sell_blocked(rebuild, h))
+    log(f"6c final state: equal to the live dense matrix; SpMM against a "
+        f"rebuild from it max_abs_err {err:.3e}; report {dg.report()}")
+    for name in rows:
+        rows[name]["launches"] = totals[name]
+    return rows
+
+
+def serving_phase(torch, np, port):
+    """Phase 6 (6a, 6b, 6c); fails if any ``resilience_*`` counter moves.
+    Returns the kernel rows at the new shapes and the run summaries."""
+    t0 = time.perf_counter()
+    before = resilience_counts(port)
+    rows, runs = batched_serving_phase(torch, np, port)
+    log(f"6a done at {time.perf_counter() - t0:.1f} s")
+    runs["continuous"] = continuous_phase(torch, np, port)
+    for name, count in runs["continuous"]["launches"].items():
+        rows[name]["launches"] += count
+    log(f"6b done at {time.perf_counter() - t0:.1f} s")
+    delta = delta_phase(torch, np, port)
+    after = resilience_counts(port)
+    if after != before:
+        raise AssertionError(f"phase 6: resilience counters moved: "
+                             f"{before} -> {after}")
+    log(f"phase 6: resilience counters unchanged ({after or 'none'}); "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    return rows, delta, runs
+
+
 def main() -> int:
     import torch
 
@@ -2262,6 +2974,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rows.update(bsattn_phase(torch, np, port))
+    torch.cuda.empty_cache()
+    serve_rows, delta_rows, runs6 = serving_phase(torch, np, port)
+    for name, row in list(serve_rows.items()) + list(delta_rows.items()):
+        rows[name]["launches"] += row["launches"]
 
     kernels = []
     for name in sorted(KERNELS):
@@ -2275,6 +2991,9 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"backward_shapes": {"a": backward_a,
                                           "b": backward_b}}))
+    print(json.dumps({"serving_shapes": {"blockdiag_16x16": serve_rows,
+                                         "delta_overlay": delta_rows,
+                                         "runs": runs6}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

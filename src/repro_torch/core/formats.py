@@ -383,6 +383,10 @@ class SellCS:
         return sum(r * w for _, r, w in self.buckets)
 
     @property
+    def n_packed_rows(self) -> int:
+        return sum(r for _, r, _ in self.buckets)
+
+    @property
     def n_tiles(self) -> int:
         return int(self.tile_rows.shape[0])
 

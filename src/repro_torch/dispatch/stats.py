@@ -83,6 +83,23 @@ class MatrixStats:
         m_pad = self.n_block_rows * max(self.block_m, 1)
         return max(self.stored_elements, m_pad * self.max_row_nnz)
 
+    def with_capacity(self, capacity: int) -> "MatrixStats":
+        """Stats restated at a mutable overlay's slot capacity (live +
+        slack slots).  A ``DeltaGraph`` patches edge deltas into reserved
+        slots without changing any array shape, so the stats its served
+        matrix carries stay constant between repacks; the planner
+        re-prices from the exact live stats at a repack."""
+        cap = int(capacity)
+        if cap < self.nnz:
+            raise ValueError(
+                f"capacity {cap} < live nnz {self.nnz}; an overlay "
+                "cannot hold fewer slots than stored elements")
+        return dataclasses.replace(
+            self, nnz=cap,
+            stored_elements=max(self.stored_elements, cap),
+            sell_stored_elements=(max(self.sell_stored_elements, cap)
+                                  if self.sell_stored_elements else 0))
+
     @staticmethod
     def from_coords(shape: Tuple[int, int], rows: np.ndarray,
                     cols: np.ndarray, block_m: int = 1, block_n: int = 1,

@@ -7,6 +7,8 @@ hash of every source in ``csrc/`` and of the flags, so an edited kernel
 is rebuilt and a stale library is never loaded.  Libraries are loaded
 with ``ctypes``: every pointer and the stream pass as ``c_void_p``.
 Nothing here runs at import time: the CPU tests import every module.
+A failed build, load or launch raises ``KernelError``, which the serving
+engines never retry and never route around.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable
+
+from repro_torch.resilience.errors import KernelError
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -57,7 +61,7 @@ _FNS: Dict[str, Callable[..., int]] = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (on PATH or at /usr/local/cuda/bin); the CUDA "
             "kernels are built from src/repro_torch/csrc at first use")
     return path
@@ -102,8 +106,8 @@ def build(names: Iterable[str] = SOURCES,
         else:
             os.replace(tmp, lib_path(name))  # atomic: readers see whole files
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+        raise KernelError("nvcc failed for " + ", ".join(failed) + ":\n"
+                          + "\n".join(logs[n] for n in failed))
     return logs
 
 
@@ -117,7 +121,12 @@ def entry(name: str):
             lib = _LIBS.get(source)
             if lib is None:
                 build([source])
-                lib = _LIBS[source] = ctypes.CDLL(str(lib_path(source)))
+                try:
+                    lib = ctypes.CDLL(str(lib_path(source)))
+                except OSError as exc:
+                    raise KernelError(f"cannot load {source}: {exc}") \
+                        from exc
+                _LIBS[source] = lib
             fn_name, argtypes = _SIGNATURES[name]
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
@@ -128,5 +137,5 @@ def entry(name: str):
 
 def check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+        raise KernelError(f"{what}: CUDA launch failed with cudaError_t "
+                          f"{err}")

@@ -161,6 +161,28 @@ def gcn_forward(params, graph: Graph, x: torch.Tensor, *,
     return h
 
 
+def batch_graphs(graphs):
+    """Compose many Graphs' adjacencies block-diagonally: a
+    :class:`repro_torch.batch.BatchedSparseMatrix`, whose ``.matrix`` runs
+    the whole batch through one planned aggregation per layer."""
+    from repro_torch.batch import BatchedSparseMatrix
+
+    return BatchedSparseMatrix.from_matrices([g.adj for g in graphs])
+
+
+def gcn_forward_batched(params, batch, hs, *, policy: str = "auto"):
+    """GCN over N graphs at once through the block-diagonal composition.
+
+    GCN weights are node-independent, so ``diag(A_1..A_N) @ (H W)``
+    computes every graph's aggregation in one SpMM per layer.  ``hs``
+    holds per-graph features [n_i, in_features]; returns the per-graph
+    logits.
+    """
+    h = batch.batch_features(hs)
+    g = Graph(adj=batch.matrix, n_nodes=batch.matrix.shape[0])
+    return batch.unbatch(gcn_forward(params, g, h, policy=policy))
+
+
 # ---------------------------------------------------------------------------
 # GAT (single head; attention scores via SDDMM with K = 2, per the paper)
 # ---------------------------------------------------------------------------

@@ -152,7 +152,9 @@ class RetraceSentry:
 
 def _signature(x: Any) -> Hashable:
     """What ``jax.jit`` retraces on, for one argument: a tensor's shape,
-    dtype and device; a sequence's or mapping's elements in turn; any
+    dtype and device; a sequence's or mapping's elements in turn; a
+    storage form (a dataclass) field by field; a ``SparseMatrix`` as its
+    shape, stats and forms (the reference's pytree aux and leaves); any
     other argument by value (it must be hashable)."""
     if isinstance(x, torch.Tensor):
         return ("tensor", tuple(x.shape), x.dtype, x.device)
@@ -161,6 +163,13 @@ def _signature(x: Any) -> Hashable:
     if isinstance(x, dict):
         return ("dict",) + tuple((k, _signature(v))
                                  for k, v in sorted(x.items()))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,) + tuple(
+            _signature(getattr(x, f.name)) for f in dataclasses.fields(x))
+    forms = getattr(x, "_forms", None)
+    if isinstance(forms, dict):  # a SparseMatrix
+        return (type(x).__name__, x.shape, x.stats) + tuple(
+            (name, _signature(form)) for name, form in forms.items())
     return (type(x).__name__, x)
 
 

@@ -29,7 +29,8 @@ from repro_torch.resilience.chaos import (FaultPlan, FaultSpec,
                                           ProcessKillRequested,
                                           WorkerHangRequested, WorkerKilled)
 from repro_torch.resilience.errors import (DeadlineExceededError,
-                                           EngineClosedError, NaNOutputError,
+                                           EngineClosedError, KernelError,
+                                           NaNOutputError,
                                            PoisonRequestError,
                                            RequestShedError, ResilienceError,
                                            TransientExecutorError,
@@ -40,7 +41,7 @@ from repro_torch.resilience.supervisor import WorkerSupervisor
 
 __all__ = [
     "DeadlineExceededError", "EngineClosedError", "FaultPlan", "FaultSpec",
-    "NaNOutputError", "PoisonRequestError", "ProcessKillRequested",
+    "KernelError", "NaNOutputError", "PoisonRequestError", "ProcessKillRequested",
     "RequestShedError", "ResilienceError", "RetryBudget", "RetryPolicy",
     "TransientExecutorError", "WorkerHangRequested", "WorkerKilled",
     "WorkerLostError", "WorkerSupervisor", "call_with_retry", "chaos",

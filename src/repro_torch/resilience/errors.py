@@ -18,6 +18,10 @@ therefore what to do about it:
   plain ``except TimeoutError`` works.
 * :class:`EngineClosedError` — the engine shut down; subclasses
   :class:`RuntimeError` for compatibility with pre-taxonomy callers.
+* :class:`KernelError` — a hand-written CUDA kernel failed to build,
+  load or launch, or the card faulted while running one.  Never retried
+  and never degraded to another form: serving the traffic on a path
+  without the kernel would hide the fault.
 
 ``classify()`` maps an arbitrary exception onto the retry decision.
 """
@@ -64,6 +68,13 @@ class EngineClosedError(ResilienceError):
     """The engine was closed; the request cannot be (or was not) run."""
 
 
+class KernelError(ResilienceError):
+    """A CUDA kernel of the port failed to build, load or launch, or the
+    card faulted while it ran (raised by ``repro_torch.kernels._build``
+    and by the executors' synchronize).  Fatal: the request fails and the
+    form stays in service."""
+
+
 #: classification tags returned by :func:`classify`
 POISON = "poison"
 TRANSIENT = "transient"
@@ -81,7 +92,7 @@ def classify(exc: BaseException) -> str:
     if isinstance(exc, PoisonRequestError):
         return POISON
     if isinstance(exc, (EngineClosedError, DeadlineExceededError,
-                        RequestShedError)):
+                        RequestShedError, KernelError)):
         return FATAL
     if isinstance(exc, (KeyboardInterrupt, SystemExit)):
         return FATAL
@@ -94,7 +105,8 @@ def classify(exc: BaseException) -> str:
 
 
 __all__ = [
-    "DeadlineExceededError", "EngineClosedError", "FATAL", "NaNOutputError",
+    "DeadlineExceededError", "EngineClosedError", "FATAL", "KernelError",
+    "NaNOutputError",
     "POISON", "PoisonRequestError", "RequestShedError", "ResilienceError",
     "TRANSIENT", "TransientExecutorError", "WorkerLostError", "classify",
 ]

@@ -33,7 +33,13 @@ bf16 / f16, two launches equal bit for bit; K2 over Aᵀ's row view against
 the dense product and the CPU; and a GCN and a GAT training step on
 graphs of (a)'s and (b)'s structure run twice without
 ``torch.use_deterministic_algorithms``, every gradient equal per
-``torch.equal``.
+``torch.equal``.  Batched serving's operands: K5 / K1 on a bucket-padded
+16 x 16 block-diagonal composition with all-zero dummy graphs, the batched
+engine at ``form="ell"`` against the CPU with its launches counted, K2 /
+K6 / K4 / K8 on a SELL composition and on a ``DeltaGraph`` overlay after
+slack inserts, and N1's gradients over a block-diagonal composition run
+twice, equal per ``torch.equal``; a failing K1 launch under ``form="auto"``
+fails its requests and leaves the ell form in service.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1198,3 +1204,259 @@ def test_training_step_gradients_are_reproducible(dev, kind, graph_kind):
     assert len(first) == len(second) > 0
     for i, (g, h) in enumerate(zip(first, second)):
         assert torch.equal(g, h), f"{kind} on {graph_kind}: gradient {i}"
+
+
+# ---------------------------------------------------------------------------
+# Batched serving operands: 16 x 16 block-diagonal compositions with bucket
+# padding and all-zero dummy graphs (K5 / K1, N1), the SELL composition
+# and the DeltaGraph overlay after slack inserts (K2, K6, K4, K8)
+# ---------------------------------------------------------------------------
+
+
+def _bucketed_composition(device, n_dummies=2):
+    """Three graphs padded into one 16 x 16 bucket (pad slots repeat the
+    row's slot-0 column), plus ``n_dummies`` all-zero graphs, composed
+    block-diagonally on ``device``."""
+    from repro_torch.batch import (BatchedSparseMatrix, bucket_for,
+                                   empty_in_bucket, pad_to_bucket)
+
+    mats = [SparseMatrix.from_dense(_sparse(60 + i, n, n, 0.08),
+                                    formats=("ell", "csr"), block=(16, 16),
+                                    device=device)
+            for i, n in enumerate((70, 90, 100))]
+    bucket = bucket_for(mats[2].stats)
+    padded = [pad_to_bucket(m, bucket, form="ell") for m in mats] + [
+        empty_in_bucket(bucket, form="ell", device=device)] * n_dummies
+    return BatchedSparseMatrix.from_matrices(padded, formats=("ell",))
+
+
+@pytest.mark.parametrize("d", [16, 128])
+def test_blockell_kernels_on_bucketed_block_diagonal(dev, d):
+    """K5 and K1 on a padded 16 x 16 block-diagonal composition with dummy
+    graphs against their plain versions: the repeated-column pad slots and
+    the zero blocks add nothing (the dummy rows are exactly 0)."""
+    B = _bucketed_composition(dev)
+    ell = B.matrix.form("ell")
+    assert ell.bm == ell.bn == 16
+    gen = torch.Generator(device=dev).manual_seed(d)
+    h = torch.randn(ell.shape[1], d, device=dev, generator=gen)
+    got = spmm_blockell_kernel(ell.indices, ell.blocks, h)
+    torch.testing.assert_close(
+        got, spmm_blockell_ref(ell.indices, ell.blocks, h), **TOL)
+    epi = Epilogue(act="relu", has_bias=True)
+    bias = torch.randn(d, device=dev, generator=gen)
+    got5 = spmm_blockell_epilogue_kernel(ell.indices, ell.blocks, h, bias,
+                                         None, epi=epi)
+    torch.testing.assert_close(got5, spmm_blockell_epilogue_ref(
+        ell.indices, ell.blocks, h, bias, None, epi=epi), **TOL)
+    dummy_rows = B.segments[3].row_start
+    assert bool((got[dummy_rows:] == 0).all())
+    assert torch.equal(got, spmm_blockell_kernel(ell.indices, ell.blocks, h))
+
+
+def test_batched_gcn_serving_on_card_matches_cpu(dev):
+    """``BatchServingEngine.for_gcn`` at ``form="ell"`` on the card: K5 x2
+    and K1 x1 per executed batch, logits against the same engine on the
+    CPU."""
+    from repro_torch.serve.engine import BatchServeConfig, BatchServingEngine
+
+    cfg = SMOKE_CONFIG
+    adjs = [random_graph(n, avg_degree=4, seed=n) for n in (48, 80, 33, 48)]
+    xs = [np.random.default_rng(i).standard_normal(
+        (a.shape[0], cfg.in_features)).astype(np.float32)
+        for i, a in enumerate(adjs)]
+    outs = {}
+    for device in ("cpu", dev):
+        params = init_gcn(cfg, seed=0, device=device)
+        graphs = [build_graph(a, cfg, device=device) for a in adjs]
+        before = (spmm_blockell_epilogue_kernel.launches,
+                  spmm_blockell_kernel.launches)
+        with BatchServingEngine.for_gcn(params, scfg=BatchServeConfig(
+                max_batch=4, max_delay_ms=50.0, form="ell",
+                device=str(device))) as eng:
+            futs = [eng.submit(g, x) for g, x in zip(graphs, xs)]
+            outs[str(device)] = [f.result(timeout=120) for f in futs]
+            calls = eng.report()["executor"]["calls"]
+        if device != "cpu":
+            assert (spmm_blockell_epilogue_kernel.launches - before[0],
+                    spmm_blockell_kernel.launches - before[1]) \
+                == (2 * calls, calls)
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_fault_fails_the_request_and_keeps_ell_in_service(
+        dev, monkeypatch):
+    """K1's launch fails (its entry point returns cudaErrorIllegalAddress
+    and the wrapper's own check raises) under ``form="auto"`` on a bucket
+    planned ell: each request fails with ``KernelError``, more times than
+    ``degrade_after``, nothing is retried, degraded or quarantined, and
+    the next request launches K1 on the ell form."""
+    from repro_torch import obs
+    from repro_torch.resilience.errors import KernelError
+    from repro_torch.serve.engine import BatchServeConfig, BatchServingEngine
+
+    dense = _sparse(3, 48, 48, 0.3)
+    m = SparseMatrix.from_dense(dense, formats=("ell", "csr"),
+                                block=(16, 16), device=dev)
+    h = torch.randn(48, 8, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    real = _build.entry
+    obs.reset()
+    with BatchServingEngine(scfg=BatchServeConfig(
+            max_batch=2, max_delay_ms=0.0, device=str(dev))) as eng:
+        monkeypatch.setattr(_build, "entry", lambda name: (
+            lambda *args: 700) if name == "spmm_blockell" else real(name))
+        for _ in range(eng.executor.degrade_after + 1):
+            with pytest.raises(KernelError):
+                eng.infer(m, h)
+        monkeypatch.setattr(_build, "entry", real)
+        before = spmm_blockell_kernel.launches
+        got = eng.infer(m, h)
+        assert spmm_blockell_kernel.launches == before + 1
+        assert not eng.executor._degraded
+        assert {p.path for p in eng.executor._bucket_plans.values()} \
+            == {"ell"}
+    np.testing.assert_allclose(got, dense @ h.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    counters = obs.snapshot()["metrics"]["counters"]
+    assert not any(k.startswith("resilience_") for k in counters)
+
+
+def _sell_rows_check(dev, sell, d=48):
+    """K2, K6, K4 and K8 on ``sell``'s row view against their plain
+    versions; each launched twice for equal bits."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    n = sell.shape[1]
+    h = torch.randn(n, d, device=dev, generator=gen)
+    ops = (*sell_row_operands(sell), h)
+    heavy = dict(heavy_rows=sell.tile_heavy_rows)
+    got = spmm_sell_kernel(*ops, **heavy)
+    assert torch.equal(got, spmm_sell_kernel(*ops, **heavy))
+    torch.testing.assert_close(got, spmm_sell_slots_ref(*ops), **TOL)
+    epi = Epilogue(act="relu", has_bias=True)
+    bias = torch.randn(d, device=dev, generator=gen)
+    got6 = spmm_sell_epilogue_kernel(*ops, bias, None, epi=epi, **heavy)
+    torch.testing.assert_close(got6, spmm_sell_epilogue_slots_ref(
+        *ops, bias, None, epi=epi), **TOL)
+    b = torch.randn(sell.shape[0], 2, device=dev, generator=gen)
+    c = torch.randn(2, n, device=dev, generator=gen)
+    sops = (*sddmm_sell_operands(sell), b, c)
+    torch.testing.assert_close(sddmm_sell_kernel(*sops),
+                               sddmm_sell_slots_ref(*sops), **TOL)
+    q = torch.randn(sell.shape[0], 2, device=dev, generator=gen)
+    k = torch.randn(n, 2, device=dev, generator=gen)
+    aops = fused_attn_sell_operands(sell)
+    q_perm = torch.cat([q, q.new_zeros(1, 2)])[sell.perm.long()]
+    kw = dict(act="leaky_relu", slope=0.2)
+    got8 = fused_attn_sell_kernel(*aops, q_perm, k.T, h, **heavy, **kw)
+    assert torch.equal(got8, fused_attn_sell_kernel(
+        *aops, q_perm, k.T, h, **heavy, **kw))
+    torch.testing.assert_close(got8, fused_attn_sell_rows_ref(
+        *aops, q_perm, k.T, h, **kw), **TOL)
+
+
+def test_sell_kernels_on_block_diagonal_composition(dev):
+    """K2, K6, K4 and K8 on ``_concat_sell``'s output (the row view offset
+    per graph), and one planned SpMM over it against the dense
+    block-diagonal product."""
+    from repro_torch.batch import BatchedSparseMatrix
+
+    denses = [_sparse(70 + i, n, n, 0.02) for i, n in
+              enumerate((400, 300, 500))]
+    denses[1][5, :200] = 1.0  # a heavy row in the second graph
+    mats = [SparseMatrix.from_dense(a, formats=("sell",), block=(8, 8),
+                                    device=dev) for a in denses]
+    B = BatchedSparseMatrix.from_matrices(mats)
+    sell = B.matrix.form("sell")
+    assert sell.tile_heavy_rows.numel() == 1
+    _sell_rows_check(dev, sell)
+    h = torch.randn(B.shape[1], 16, device=dev)
+    block = torch.zeros(B.shape, device=dev)
+    for seg, a in zip(B.segments, denses):
+        block[seg.row_start:seg.row_start + a.shape[0],
+              seg.col_start:seg.col_start + a.shape[1]] = \
+            torch.from_numpy(a).to(dev)
+    torch.testing.assert_close(matmul(B.matrix, h, policy="sell"),
+                               block @ h, **TOL)
+
+
+def test_sell_kernels_on_delta_overlay_after_slack_inserts(dev):
+    """K2, K6, K4 and K8 on a ``DeltaGraph`` sell overlay after slack
+    inserts (claimed past each row's nonzeros), deletes and value updates,
+    and the overlay's SpMM against the same deltas on the CPU and a
+    rebuild."""
+    from repro_torch.serve.runtime import DeltaGraph
+
+    adj = random_graph(2048, 16, seed=1)
+    out = {}
+    for device in ("cpu", dev):
+        dg = DeltaGraph(adj, form="sell", device=device)
+        ov = dg._overlay
+        rng = np.random.default_rng(3)
+        rows = [p for p, free in ov.row_free.items() if free][:200]
+        inserted = 0
+        for p in rows:
+            r = ov.packed_to_orig.get(p)
+            pbr = ov.compact_of_pbr.get(p // ov.bm)
+            if r is None or pbr is None:
+                continue
+            for (tr_, tc_), _ in list(ov.tiles_index.items()):
+                if tr_ != pbr:
+                    continue
+                c = int(tc_ * ov.bn + rng.integers(ov.bn))
+                if c < adj.shape[1] and (r, c) not in ov.edge_map:
+                    dg.insert(r, c, float(rng.normal()) or 1.0)
+                    inserted += 1
+                    break
+        edges = list(ov.edge_map)[:50]
+        for r, c in edges[:25]:
+            dg.delete(r, c)
+        for r, c in edges[25:]:
+            dg.insert(r, c, 2.5)
+        assert dg.repacks == 0 and inserted > 50
+        if device != "cpu":
+            _sell_rows_check(dev, dg.matrix.form("sell"))
+        h = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (adj.shape[1], 32)).astype(np.float32)).to(device)
+        out[str(device)] = matmul(dg.matrix, h, policy="sell").cpu()
+        final = dg.matrix.to_dense()
+    torch.testing.assert_close(out[str(dev)], out["cpu"], **TOL)
+    torch.testing.assert_close(
+        out["cpu"], torch.from_numpy(final) @ torch.from_numpy(
+            np.random.default_rng(4).standard_normal(
+                (adj.shape[1], 32)).astype(np.float32)), **TOL)
+
+
+def test_blockdiag_gradients_are_reproducible_on_card(dev):
+    """The gradient test's composition (three graphs of 48, 80 and 33
+    nodes at sparsity 0.9, 16 x 16 blocks) in the ell form: the backward's
+    dH runs N1 over the block-diagonal blocks, whose per-block-column
+    lists hold the pad slots' repeated columns; two runs give equal
+    gradients (``torch.equal``), and they agree with the CPU."""
+    from repro_torch.batch import BatchedSparseMatrix
+
+    rng = np.random.default_rng(0)
+    denses = [np.where(rng.random((n, n)) < 0.1, rng.normal(size=(n, n)),
+                       0.0).astype(np.float32) for n in (48, 80, 33)]
+    hs = [rng.normal(size=(a.shape[1], 8)).astype(np.float32)
+          for a in denses]
+    grads = {}
+    for device in ("cpu", dev):
+        mats = [SparseMatrix.from_dense(a, formats=("ell",), block=(16, 16),
+                                        device=device) for a in denses]
+        B = BatchedSparseMatrix.from_matrices(mats)
+        runs = []
+        for _ in range(2):
+            vals = B.matrix.data.clone().requires_grad_(True)
+            H = B.batch_features(hs).requires_grad_(True)
+            before = spmm_blockell_t_kernel.launches
+            torch.tanh(matmul(B.matrix.with_data(vals), H)).sum().backward()
+            if device != "cpu":
+                assert spmm_blockell_t_kernel.launches == before + 1
+            runs.append((vals.grad, H.grad))
+        if device != "cpu":
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+        grads[str(device)] = runs[0]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, **TOL)

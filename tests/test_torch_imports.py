@@ -13,8 +13,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the port's subpackages, each checked by importing it alone
-SUBPACKAGES = ("core", "corpus", "data", "dispatch", "kernels", "models",
-               "obs", "resilience", "serve", "sparse", "train")
+SUBPACKAGES = ("batch", "core", "corpus", "data", "dispatch", "kernels",
+               "models", "obs", "resilience", "serve", "serve.runtime",
+               "sparse", "train")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -50,7 +51,8 @@ def test_no_jax_or_reference_imports(path):
 def test_subpackage_imports_alone(sub):
     """Each subpackage is in the files checked above, and importing it in a
     fresh interpreter loads neither JAX nor ``repro``."""
-    assert any(p.parent.name == sub for p in PORT_FILES)
+    assert any(p.parent == ROOT / "src" / "repro_torch" / sub.replace(
+        ".", "/") for p in PORT_FILES)
     code = (f"import sys, repro_torch.{sub}; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

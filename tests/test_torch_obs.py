@@ -289,3 +289,190 @@ def test_dispatch_log_capacity_as_reference():
         assert d.log_capacity() == old
     assert obs.snapshot()["metrics"]["counters"] \
         == j_obs.snapshot()["metrics"]["counters"]
+
+
+# ---------------------------------------------------------------------------
+# The serving stack's reports and instruments (the engine cases of
+# tests/test_obs.py), on the same traffic in both packages
+# ---------------------------------------------------------------------------
+
+D = 8
+
+
+def _requests(rng, sizes):
+    """The same graphs and features for both packages."""
+    mats, jmats, hs = [], [], []
+    for n in sizes:
+        dense = np.where(rng.random((n, n)) < 0.1, rng.normal(size=(n, n)),
+                         0.0).astype(np.float32)
+        mats.append(SparseMatrix.from_dense(dense, formats=("ell", "csr"),
+                                            block=BLOCK, device="cpu"))
+        jmats.append(JSparseMatrix.from_dense(dense, formats=("ell", "csr"),
+                                              block=BLOCK))
+        hs.append(rng.normal(size=(n, D)).astype(np.float32))
+    return mats, jmats, hs
+
+
+def _serve_counters(o):
+    """The counters a serving run feeds, apart from the plan log's (the
+    reference plans once per jit trace, the port once per call), with each
+    lane's executor id dropped (ids count the executors a process made)."""
+    return {k: {re.sub(r"lane=x\d+/", "lane=x/", label): n
+                for label, n in v.items()}
+            for k, v in o.snapshot()["metrics"]["counters"].items()
+            if not k.startswith(("dispatch_plans", "plan_cache"))}
+
+
+def test_executor_report_schema(rng):
+    from repro.batch.executor import BucketedExecutor as JExecutor
+    from repro_torch.batch.executor import BucketedExecutor
+
+    mats, jmats, hs = _requests(rng, (32, 48))
+    ex, jex = BucketedExecutor(policy="csr"), JExecutor(policy="csr")
+    ex.run(mats, hs)
+    jex.run(jmats, [jnp.asarray(h) for h in hs])
+    rep, jrep = ex.report(), jex.report()
+    assert set(rep) == set(jrep)
+    assert {"requests", "calls", "compiles", "executors_cached",
+            "evictions", "buckets", "waste"} <= set(rep)
+    assert rep["waste"] == jrep["waste"]
+    with pytest.warns(DeprecationWarning):
+        assert rep["padding"] is rep["waste"]
+    assert _serve_counters(obs) == _serve_counters(j_obs)
+    assert obs.SENTRY.report()["compiles"] \
+        == j_obs.SENTRY.report()["compiles"] == ex.compiles
+
+
+def test_engine_reports_use_canonical_latency_keys(rng):
+    from repro_torch.serve.engine import BatchServeConfig, BatchServingEngine
+    from repro_torch.serve.runtime import (ContinuousBatchEngine,
+                                           ContinuousConfig)
+
+    mats, _, hs = _requests(rng, (32, 48, 32))
+    with BatchServingEngine(scfg=BatchServeConfig(
+            max_batch=4, adaptive=True, device="cpu")) as eng:
+        futs = [eng.submit(m, h) for m, h in zip(mats, hs)]
+        eng.drain()
+        [f.result(timeout=60) for f in futs]
+        rep = eng.report()
+    assert {"completed", "p50_ms", "p99_ms", "executor"} <= set(rep)
+    with pytest.warns(DeprecationWarning):
+        assert rep["latency_ms_p50"] == rep["p50_ms"]
+
+    with ContinuousBatchEngine(cfg=ContinuousConfig(
+            slots=2, adaptive=False, max_wait_ms=0.0,
+            device="cpu")) as ceng:
+        futs = [ceng.submit(m, h) for m, h in zip(mats, hs)]
+        ceng.drain()
+        [f.result(timeout=60) for f in futs]
+        rep = ceng.report()
+    assert {"submitted", "completed", "p50_ms", "p99_ms", "lanes",
+            "executor"} <= set(rep)
+    with pytest.warns(DeprecationWarning):
+        assert rep["latency_ms_p99"] == rep["p99_ms"]
+
+
+def test_ladder_and_delta_report_schemas(rng):
+    from repro.serve.runtime import AdaptiveBucketLadder as JLadder
+    from repro.serve.runtime import DeltaGraph as JDeltaGraph
+    from repro_torch.serve.runtime import AdaptiveBucketLadder, DeltaGraph
+
+    mats, jmats, _ = _requests(rng, (32,))
+    lad, jlad = AdaptiveBucketLadder(), JLadder()
+    lad.observe(mats[0].stats)
+    jlad.observe(jmats[0].stats)
+    assert lad.report() == jlad.report()
+    assert {"fitted", "observed", "refits", "drift_checks", "last_drift",
+            "fallbacks", "snapped_rungs", "rungs"} <= set(lad.report())
+    assert obs.REGISTRY.total("ladder_observed_total") == 1
+
+    dense = mats[0].to_dense()
+    dg, jdg = DeltaGraph(dense, form="csr", device="cpu"), \
+        JDeltaGraph(dense, form="csr")
+    r, c = np.nonzero(dense)
+    for g in (dg, jdg):
+        g.delete(int(r[0]), int(c[0]))
+    assert dg.report() == jdg.report()
+    assert {"form", "live_nnz", "capacity", "free_slots", "deltas_applied",
+            "repacks", "stats_invalidations",
+            "background_repack_running"} <= set(dg.report())
+    assert obs.REGISTRY.value("graph_deltas_total", op="delete") == 1
+    assert _serve_counters(obs) == _serve_counters(j_obs)
+
+
+def test_single_adaptive_run_populates_snapshot(rng):
+    from repro_torch.serve.engine import BatchServeConfig, BatchServingEngine
+
+    with BatchServingEngine(scfg=BatchServeConfig(
+            max_batch=4, adaptive=True, device="cpu")) as eng:
+        mats, _, hs = _requests(rng, (32, 48, 64, 32, 48, 32, 96, 64))
+        futs = [eng.submit(m, h) for m, h in zip(mats, hs)]
+        eng.drain(timeout=120.0)
+        [f.result(timeout=60) for f in futs]
+
+    snap = obs.snapshot()
+    counters = snap["metrics"]["counters"]
+    assert sum(counters["dispatch_plans_total"].values()) > 0
+    assert sum(counters["executor_compiles_total"].values()) > 0
+    assert sum(counters["executor_calls_total"].values()) > 0
+    assert counters["padding_rows_padded_total"][""] \
+        >= counters["padding_rows_real_total"][""] > 0
+    assert sum(counters["ladder_observed_total"].values()) == 8
+    lat = snap["metrics"]["histograms"]["serve_latency_ms"]["engine=batch"]
+    assert lat["count"] == 8 and lat["p50"] > 0
+    assert {"serve.admit", "serve.bucket", "serve.flush", "serve.compose",
+            "serve.execute", "serve.complete"} <= set(snap["spans"])
+    rows = snap["audit"]["rows"]
+    assert rows and all(r["op"] == "spmm" and r["measured_ms"] > 0
+                        for r in rows)
+    assert any(r["predicted"] is not None for r in rows)
+    assert snap["sentry"]["unexpected_retraces"] == 0
+    assert snap["sentry"]["compiles"] > 0
+
+
+def test_injected_shape_drift_flags_unexpected_retrace(rng):
+    from repro_torch.batch.executor import BucketedExecutor
+
+    ex = BucketedExecutor(policy="csr")
+    mats, _, hs = _requests(rng, (32, 32))
+    ex.run(mats, hs)
+    assert obs.SENTRY.report()["unexpected_retraces"] == 0
+    key = next(iter(ex._executors))
+    exe = ex.executor_for(key)
+    # a drifted shape through the cached lane executor is a new signature
+    # past the lane's warmup: the sentry flags it
+    m = _requests(rng, (2 * key.bucket.rows,))[0][0]
+    exe(m, torch.from_numpy(rng.normal(size=(m.shape[1], D))
+                            .astype(np.float32)))
+    rep = obs.SENTRY.report()
+    assert rep["unexpected_retraces"] == 1
+    assert rep["events"][0]["lane"] == ex.lane_label(key)
+    assert obs.REGISTRY.value("unexpected_retrace_total",
+                              lane=ex.lane_label(key)) == 1
+
+
+def test_steady_state_continuous_run_is_retrace_free(rng):
+    from repro.serve.runtime import ContinuousBatchEngine as JEngine
+    from repro.serve.runtime import ContinuousConfig as JConfig
+    from repro_torch.serve.runtime import (ContinuousBatchEngine,
+                                           ContinuousConfig)
+
+    kw = dict(slots=2, adaptive=False, max_wait_ms=0.0)
+    with ContinuousBatchEngine(cfg=ContinuousConfig(device="cpu", **kw)) \
+            as eng, JEngine(cfg=JConfig(**kw)) as jeng:
+        for _ in range(4):       # same shapes, wave after wave
+            mats, jmats, hs = _requests(rng, (48, 48, 80, 80))
+            futs = [eng.submit(m, h) for m, h in zip(mats, hs)]
+            jfuts = [jeng.submit(m, jnp.asarray(h))
+                     for m, h in zip(jmats, hs)]
+            eng.drain(timeout=120.0)
+            jeng.drain(timeout=120.0)
+            for f, jf in zip(futs, jfuts):
+                np.testing.assert_allclose(f.result(timeout=60),
+                                           jf.result(timeout=60),
+                                           rtol=2e-4, atol=2e-4)
+    rep, jrep = obs.SENTRY.report(), j_obs.SENTRY.report()
+    assert rep["calls"] > rep["compiles"] > 0
+    assert rep["unexpected_retraces"] == 0
+    assert (rep["calls"], rep["compiles"]) \
+        == (jrep["calls"], jrep["compiles"])
