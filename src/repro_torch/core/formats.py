@@ -69,6 +69,13 @@ class CSR:
                    indices=idx[1].astype(np.int32), values=dense[idx],
                    shape=(m, n))
 
+    def to_dense(self) -> np.ndarray:
+        m, n = self.shape
+        out = np.zeros((m, n), dtype=self.values.dtype)
+        rows = np.repeat(np.arange(m), np.diff(self.indptr))
+        out[rows, self.indices] = self.values
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Block-ELL

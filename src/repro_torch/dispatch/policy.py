@@ -5,14 +5,18 @@ Execution paths:
   * ``ell``   — Block-ELL / Block-COO; the CUDA kernels K1/K5 (SpMM), K3
                 (SDDMM) and K7 (fused attention) for CUDA operands.
   * ``sell``  — SELL-C-σ over live tiles only; K2/K6, K4 and K8.
-  * ``csr``   — element-granular gather + ``index_add_``.
+  * ``csr``   — element-granular gather + a fixed-order segmented sum
+                (``torch.segment_reduce``: no atomics).
   * ``dense`` — densified fallback.
 
-Policies: ``auto`` (the analytic cost model), ``autotune`` (planned by
-the cost model in this port until the autotune slice lands), or one of
-the path names, which forces that path.
+Policies: ``auto`` (the analytic cost model), ``autotune`` (time the
+candidate paths once on the operand's device, cache the winner per (op,
+shape, width, dtype, sparsity-bucket) key: ``repro_torch.dispatch
+.autotune``), or one of the path names, which forces that path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 PATH_ELL = "ell"
 PATH_SELL = "sell"
@@ -52,3 +56,20 @@ def normalize_policy(policy: str) -> str:
             f"unknown dispatch policy {policy!r}; expected one of "
             f"{POLICIES + tuple(_ALIASES)}")
     return p
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Tunables of the dispatch layer (the cost-model constants are in
+    ``dispatch/cost_model.py``).  The reference's ``use_kernel`` is not
+    here: the operand's device chooses between a kernel and its plain
+    version."""
+
+    # autotune measurement
+    autotune_warmup: int = 1
+    autotune_iters: int = 3
+    # sparsity buckets per density decade for the autotune cache key
+    buckets_per_decade: int = 2
+
+
+DEFAULT_CONFIG = DispatchConfig()

@@ -11,7 +11,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.formats import _cdiv, sell_slot_volume
+from repro_torch.core.formats import (BlockCOO, BlockELL, _cdiv,
+                                      blockell_stream_elements,
+                                      sell_slot_volume)
 
 
 def _structure_features(shape: Tuple[int, int], rows: np.ndarray,
@@ -128,6 +130,60 @@ class MatrixStats:
             occupancy=len(ub) / max(nbr * width, 1),
             sell_stored_elements=sell_slot_volume(row_nnz),
             **_structure_features((m, n), rows, cols, row_nnz),
+        )
+
+    @staticmethod
+    def from_blockell(ell: BlockELL, nnz: Optional[int] = None
+                      ) -> "MatrixStats":
+        """Stats of a BlockELL (its blocks copied to the host)."""
+        blocks = ell.blocks.cpu().numpy()  # [nbr, W, bm, bn]
+        if nnz is None:
+            nnz = int(np.count_nonzero(blocks))
+        # global element coordinates of the stored nonzeros
+        br, slot, i, j = np.nonzero(blocks)
+        grows = br.astype(np.int64) * ell.bm + i
+        gcols = ell.indices.cpu().numpy().astype(np.int64)[br, slot] \
+            * ell.bn + j
+        row_nnz = np.bincount(grows, minlength=ell.shape[0])
+        nbr, w = ell.n_block_rows, ell.ell_width
+        return MatrixStats(
+            shape=ell.shape,
+            nnz=int(nnz),
+            stored_elements=int(blockell_stream_elements(ell))
+            - nbr * w,  # count data words only, not the index words
+            block_m=ell.bm,
+            block_n=ell.bn,
+            n_block_rows=nbr,
+            ell_width=w,
+            occupancy=ell.occupancy(),
+            sell_stored_elements=sell_slot_volume(row_nnz),
+            **_structure_features(ell.shape, grows, gcols, row_nnz),
+        )
+
+    @staticmethod
+    def from_blockcoo(coo: BlockCOO, nnz: Optional[int] = None
+                      ) -> "MatrixStats":
+        """Stats of a BlockCOO (its blocks copied to the host)."""
+        blocks = coo.blocks.cpu().numpy()
+        if nnz is None:
+            nnz = int(np.count_nonzero(blocks))
+        nnzb = coo.nnzb
+        real = int((blocks.reshape(nnzb, -1) != 0).any(axis=1).sum())
+        e, i, j = np.nonzero(blocks)
+        grows = coo.rows.cpu().numpy()[e].astype(np.int64) * coo.bm + i
+        gcols = coo.cols.cpu().numpy()[e].astype(np.int64) * coo.bn + j
+        row_nnz = np.bincount(grows, minlength=coo.shape[0])
+        return MatrixStats(
+            shape=coo.shape,
+            nnz=int(nnz),
+            stored_elements=int(nnzb * coo.bm * coo.bn),
+            block_m=coo.bm,
+            block_n=coo.bn,
+            n_block_rows=coo.shape[0] // coo.bm,
+            ell_width=0,
+            occupancy=real / max(nnzb, 1),
+            sell_stored_elements=sell_slot_volume(row_nnz),
+            **_structure_features(coo.shape, grows, gcols, row_nnz),
         )
 
 

@@ -103,6 +103,39 @@ def spmm_exec(path: str, a: SparseMatrix, h: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown spmm path {path!r}")
 
 
+def spmv_exec(path: str, a: SparseMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Run one planned SpMV path; x: [N] logical entries; returns [M].
+
+    Each layout of A runs its direct reduction (``paths.spmv_*``).  A
+    transpose (``A.T``, the backward's dx) whose source form the path
+    reads in place runs the transposed SpMM at D = 1, as ``spmm_exec``
+    routes it: N1 over A's Block-ELL blocks on the ell path, K2 over Aᵀ's
+    row view on the sell path, each summing in one fixed order (the
+    reference reduces a transposed Block-COO, which on CUDA would add
+    with atomics)."""
+    m = a.shape[0]
+    if path == PATH_ELL:
+        if a.has_form("ell"):
+            ell = a.form("ell")
+            return paths.spmv_ell(ell, paths.pad_rows(x, ell.shape[1]))[:m]
+        ell = a.transposed_form("ell")
+        if ell is not None:
+            return paths.spmm_ell_t(
+                ell, paths.pad_rows(x[:, None], ell.shape[0]))[:m, 0]
+        coo = a.form("coo")
+        return paths.spmv_coo(coo, paths.pad_rows(x, coo.shape[1]))[:m]
+    if path == PATH_SELL and a.has_form("sell"):
+        return paths.spmv_sell(a.form("sell"), x)
+    if path == PATH_SELL and a.transposed_form("sell") is not None:
+        return paths.spmm_sell_t(a.transposed_form("sell"), x[:, None])[:, 0]
+    if path in (PATH_CSR, PATH_SELL):  # sell: a transposed sell operand
+        r, c, v = a.form("csr")
+        return paths.spmv_elements(r, c, v, x, m)
+    if path == PATH_DENSE:
+        return paths.spmm_dense(a.densify(), x)
+    raise ValueError(f"unknown spmv path {path!r}")
+
+
 def spmm_epilogue_exec(path: str, epi: Epilogue, a: SparseMatrix,
                        h: torch.Tensor, bias: Optional[torch.Tensor],
                        residual: Optional[torch.Tensor]) -> torch.Tensor:
@@ -366,6 +399,43 @@ class SpMM(torch.autograd.Function):
                         "(spmm backward is sddmm)", a)
             dvals = _mask_structural(vals, raw)
         return None, None, dvals, dh
+
+
+# ---------------------------------------------------------------------------
+# SpMV: y = A @ x  (the same duality at d = 1)
+# ---------------------------------------------------------------------------
+
+
+class SpMV(torch.autograd.Function):
+    """``y = A @ x`` for a [N] vector on one planned path; inputs ``(path,
+    a, vals, x)`` with ``vals = read_values(a, path)``.
+
+    Backward: ``dx = Aᵀ ḡ`` (``spmv_exec`` on the transpose: N1 or K2 at
+    D = 1 on the card) and ``dA = pattern(A) ⊙ (ḡ xᵀ)``, a rank-1 SDDMM
+    (K3 or K4 at K = 1), each only where its input needs it."""
+
+    @staticmethod
+    def forward(ctx, path: str, a: SparseMatrix, vals: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+        ctx.path, ctx.a = path, a
+        ctx.save_for_backward(vals, x)
+        return spmv_exec(path, a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = ctx.saved_tensors
+        path, a = ctx.path, ctx.a
+        g = g.contiguous()
+        dvals = dx = None
+        if ctx.needs_input_grad[3]:
+            dx = spmv_exec(path, a.T, g).to(x.dtype)
+            _record_vjp("spmv", path, "vjp: dx = Aᵀ @ ḡ (spmv backward)", a)
+        if ctx.needs_input_grad[2]:
+            raw = sample_pattern_exec(path, a, g[:, None], x[None, :])
+            _record_vjp("sddmm", path, "vjp: dA = pattern(A) ⊙ (ḡ xᵀ) (spmv "
+                        "backward is sddmm)", a)
+            dvals = _mask_structural(vals, raw)
+        return None, None, dvals, dx
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """``SparseMatrix`` — one sparse matrix carried in one or more storage
-forms (the port of the part of ``repro.sparse.matrix`` that serving
-uses).
+forms (the port of ``repro.sparse.matrix``).
 
 Forms:
 
@@ -14,6 +13,10 @@ Forms:
 A matrix may carry several forms at once, so the dispatcher can route
 any of their paths.  The planner reads the host-measured
 :class:`MatrixStats` and memoizes plans per matrix (``plan_cache``).
+
+Operators: ``A @ H`` plans an SpMM (a 1-D ``H``: an SpMV), ``x @ A`` the
+SpMM of the transpose, ``A.sddmm(b, c)`` an SDDMM, ``A.T`` transposes;
+each is differentiable (``repro_torch.sparse.autodiff``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
+from repro_torch.core.formats import CSR, BlockCOO, BlockELL, SellCS
 from repro_torch.device import resolve_device
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
 from repro_torch.dispatch.policy import PATH_CSR, PATH_SELL
@@ -35,6 +38,10 @@ from repro_torch.sparse import paths
 from repro_torch.sparse.plan import PlanCache
 
 FORMATS = ("ell", "sell", "coo", "csr")
+# the arrays of a SELL form that the reference's SellCS carries
+_SELL_ARRAYS = ("slot_cols", "slot_rows", "slot_vals", "out_gather", "perm",
+                "tile_rows", "tile_cols", "tile_slot_map", "slot_tile_pos",
+                "tile_out_gather")
 # feature width assumed when from_dense(formats=None) prices the paths
 _AUTO_FORMAT_D = 256  # the paper's SpMM setting (§4.1)
 
@@ -81,7 +88,8 @@ def single_form(a: "SparseMatrix", name: str,
 class SparseMatrix:
     """One sparse matrix, any carried storage format, dispatch-ready.
 
-    Construct with :meth:`from_dense`.
+    Construct with :meth:`from_dense` / :meth:`from_csr` /
+    :meth:`from_blockell` / :meth:`from_blockcoo` / :meth:`from_sellcs`.
     """
 
     __slots__ = ("_forms", "shape", "stats", "_cache", "_transpose",
@@ -141,6 +149,48 @@ class SparseMatrix:
                                    rows, cols) for name in formats}
         return cls(forms, a.shape, stats)
 
+    @classmethod
+    def from_csr(cls, csr: CSR, *, block: Tuple[int, int] = (64, 64),
+                 device="cuda") -> "SparseMatrix":
+        """Wrap a host CSR as the element form on ``device``."""
+        row_ids, col_ids, vals = paths.csr_to_device_arrays(csr, device)
+        rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+        stats = MatrixStats.from_coords(csr.shape, rows, csr.indices,
+                                        block_m=block[0], block_n=block[1],
+                                        nnz=csr.nnz)
+        return cls({"csr": (row_ids, col_ids, vals)}, csr.shape, stats)
+
+    @classmethod
+    def from_blockell(cls, ell: BlockELL, *,
+                      stats: Optional[MatrixStats] = None,
+                      nnz: Optional[int] = None) -> "SparseMatrix":
+        """Wrap a BlockELL (stats measured from its blocks unless given)."""
+        if stats is None:
+            stats = MatrixStats.from_blockell(ell, nnz=nnz)
+        return cls({"ell": ell}, ell.shape, stats)
+
+    @classmethod
+    def from_blockcoo(cls, coo: BlockCOO, *,
+                      stats: Optional[MatrixStats] = None,
+                      nnz: Optional[int] = None) -> "SparseMatrix":
+        """Wrap a BlockCOO (stats measured from its blocks unless given)."""
+        if stats is None:
+            stats = MatrixStats.from_blockcoo(coo, nnz=nnz)
+        return cls({"coo": coo}, coo.shape, stats)
+
+    @classmethod
+    def from_sellcs(cls, sell: SellCS, *,
+                    stats: Optional[MatrixStats] = None) -> "SparseMatrix":
+        """Wrap a SELL-C-σ packing (stats from its nonzero slots unless
+        given)."""
+        if stats is None:
+            mask = sell.slot_vals.cpu().numpy() != 0
+            stats = MatrixStats.from_coords(
+                sell.shape, sell.slot_rows.cpu().numpy()[mask],
+                sell.slot_cols.cpu().numpy()[mask], block_m=sell.bm,
+                block_n=sell.bn, nnz=int(mask.sum()))
+        return cls({"sell": sell}, sell.shape, stats)
+
     # -- metadata -------------------------------------------------------------
 
     @property
@@ -184,10 +234,47 @@ class SparseMatrix:
         return self.data.device
 
     @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def nnz(self) -> int:
+        if self.stats is None:
+            raise ValueError("matrix has no sparsity stats")
+        return self.stats.nnz
+
+    @property
+    def density(self) -> float:
+        if self.stats is None:
+            raise ValueError("matrix has no sparsity stats")
+        return self.stats.density
+
+    @property
     def block(self) -> Tuple[int, int]:
         if self.stats is not None:
             return (self.stats.block_m, self.stats.block_n)
         return (64, 64)
+
+    def nbytes(self) -> int:
+        """Bytes of the carried forms' arrays, counted as the reference
+        counts its forms (a SELL form's row view, derived data the
+        reference does not carry, is left out)."""
+        total = 0
+        for name, form in self._forms.items():
+            if name == "csr":
+                tensors = form
+            elif name == "sell":
+                tensors = [getattr(form, f) for f in _SELL_ARRAYS]
+            else:
+                tensors = [getattr(form, f.name)
+                           for f in dataclasses.fields(form)]
+            total += sum(t.numel() * t.element_size() for t in tensors
+                         if isinstance(t, torch.Tensor))
+        return total
 
     def __repr__(self) -> str:
         nnz = self.stats.nnz if self.stats is not None else "?"
@@ -202,11 +289,52 @@ class SparseMatrix:
         shared, since plans depend on structure, not values."""
         return single_form(self, self.format, values)
 
+    def with_stats(self, stats: MatrixStats) -> "SparseMatrix":
+        """Same forms and data, re-stated planner stats, and a fresh plan
+        memo (memoized plans were priced off the old stats)."""
+        if stats is not None and (stats.shape[0] < self.shape[0]
+                                  or stats.shape[1] < self.shape[1]):
+            raise ValueError(
+                f"stats shape {stats.shape} does not cover matrix shape "
+                f"{self.shape} (stats carry the padded extent)")
+        out = SparseMatrix(self._forms, self.shape, stats)
+        out._transposed_of = self._transposed_of
+        return out
+
     def pattern(self) -> "SparseMatrix":
         """0/1 mask of the primary form's nonzero entries (the sampling
         operand of SDDMM)."""
         v = self.data
         return self.with_data((v != 0).to(v.dtype))
+
+    # -- operators ----------------------------------------------------------
+
+    def __matmul__(self, h):
+        if isinstance(h, SparseMatrix):
+            return NotImplemented
+        from repro_torch.sparse import ops
+
+        return ops.matmul(self, h)
+
+    def matmul(self, h, *, epilogue=None, bias=None, residual=None, **kw):
+        """``A @ H`` with an optional fused epilogue:
+        ``A.matmul(h, epilogue="relu", bias=b)`` is ``relu(A @ h + b)``
+        (see :func:`repro_torch.sparse.ops.matmul`)."""
+        from repro_torch.sparse import ops
+
+        return ops.matmul(self, h, epilogue=epilogue, bias=bias,
+                          residual=residual, **kw)
+
+    def __rmatmul__(self, x):
+        """``x @ A``: ``Aᵀ x`` for a 1-D ``x``, ``(Aᵀ xᵀ)ᵀ`` for a 2-D
+        one."""
+        from repro_torch.sparse import ops
+
+        if not isinstance(x, torch.Tensor) or x.ndim not in (1, 2):
+            return NotImplemented
+        if x.ndim == 1:
+            return ops.matmul(self.T, x)
+        return ops.matmul(self.T, x.T).T
 
     def sddmm(self, b, c, **kw) -> "SparseMatrix":
         """``self ⊙ (b @ c)`` at this matrix's stored entries."""

@@ -1,13 +1,16 @@
-"""Planned SpMM, SDDMM and fused-attention front-ends for
+"""Planned SpMM, SpMV, SDDMM and fused-attention front-ends for
 ``SparseMatrix`` (the port of ``repro.sparse.ops``).
 
-``matmul`` (what ``A @ H`` calls), ``sddmm`` / ``sample`` and
-``fused_graph_attention`` resolve an execution path through the analytic
-cost model for ``policy="auto"`` or take a forced path, then run it.
-Plans are memoized per matrix: the first call for a given key plans,
-every later call hits the memo.  Candidate paths follow the forms a
-matrix carries (``ell`` needs an ``ell`` or ``coo`` form); ``dense``
-densifies on the device and is always available.  Each op runs through
+``matmul`` (what ``A @ H`` calls; a 1-D ``H`` takes ``spmv``), ``spmv``,
+``sddmm`` / ``sample`` and ``fused_graph_attention`` resolve an execution
+path through the analytic cost model for ``policy="auto"``, through the
+timed autotune cache for ``policy="autotune"`` (each candidate path timed
+once on the operand's device, ``repro_torch.dispatch.autotune``), or take
+a forced path, then run it.  Plans are memoized per matrix: the first
+call for a given key plans, every later call hits the memo.  Candidate
+paths follow the forms a matrix carries (``ell`` needs an ``ell`` or
+``coo`` form); ``dense`` densifies on the device and is always
+available.  Each op runs through
 its ``torch.autograd.Function`` (``repro_torch.sparse.autodiff``), so
 ``loss.backward()`` differentiates through the SpMM <-> SDDMM duality.
 """
@@ -18,13 +21,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.dispatch.autotune import AutotuneCache
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
-from repro_torch.dispatch.dispatcher import (Plan, plan_fused_attention,
+from repro_torch.dispatch.dispatcher import (Plan, autotune_plan, on_cuda,
+                                             plan_fused_attention,
                                              plan_sddmm, plan_spmm,
-                                             record_plan)
-from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
+                                             plan_spmv, record_plan)
+from repro_torch.dispatch.policy import (DEFAULT_CONFIG, PATH_CSR,
+                                         PATH_DENSE, PATH_ELL,
                                          PATH_FUSED_ATTN, PATH_SELL, PATHS,
-                                         POLICY_AUTO, normalize_policy)
+                                         POLICY_AUTO, POLICY_AUTOTUNE,
+                                         DispatchConfig, normalize_policy)
 from repro_torch.kernels.fused.epilogue import normalize_epilogue
 from repro_torch.sparse import autodiff
 from repro_torch.sparse.matrix import SparseMatrix, single_form
@@ -45,12 +52,19 @@ def available_paths(a: SparseMatrix) -> Tuple[str, ...]:
 
 def _resolve_plan(op: str, a: SparseMatrix, inner_dim, ref_dtype,
                   policy: str, cand: Tuple[str, ...],
-                  cost_model: CostModel, key_extra: Tuple = (),
+                  cost_model: CostModel, config: DispatchConfig,
+                  autotune_cache: Optional[AutotuneCache], exec_thunk,
+                  key_extra: Tuple = (),
                   fused: Optional[str] = None) -> Plan:
-    """Resolve (and memoize) one dispatch plan (forced or cost model).
+    """Resolve (and memoize) one dispatch plan: forced, the cost model, or
+    timed (``autotune``: each candidate's ``exec_thunk(path)`` timed once
+    per autotune key, the winner cached in ``autotune_cache``, else
+    ``GLOBAL_CACHE``; ``dispatcher.autotune_plan``).
 
-    ``inner_dim`` is the operand width: an int for spmm / sddmm, a
-    ``(k, d)`` pair for the fused attention op.
+    ``inner_dim`` is the operand width: an int for spmm / spmv / sddmm, a
+    ``(k, d)`` pair for the fused attention op.  ``key_extra`` folds
+    op-specific static config (the epilogue, the edge act) into both keys;
+    ``fused`` tags the plan for the dispatch log.
     """
     inner_key = tuple(int(x) for x in inner_dim) \
         if isinstance(inner_dim, tuple) else int(inner_dim)
@@ -64,16 +78,25 @@ def _resolve_plan(op: str, a: SparseMatrix, inner_dim, ref_dtype,
             raise ValueError(
                 f"policy {policy!r} not among available paths {cand}")
         plan = Plan(op=op, path=policy, policy=policy, reason="forced",
-                    use_kernel=a.device.type == "cuda", stats=a.stats)
+                    use_kernel=on_cuda(a.device), stats=a.stats)
+    elif a.stats is None:
+        raise ValueError(
+            f"{op}: matrix has no sparsity stats; construct it with "
+            "SparseMatrix.from_dense / from_* or force a path policy")
+    elif policy == POLICY_AUTOTUNE:
+        # the fused op is keyed at its width k + d
+        width = sum(inner_key) if isinstance(inner_key, tuple) \
+            else inner_key
+        plan = autotune_plan(op, a.stats, width, ref_dtype,
+                             {p: exec_thunk(p) for p in cand}, a.device,
+                             config, autotune_cache, key_extra)
     else:
-        if a.stats is None:
-            raise ValueError(
-                f"{op}: matrix has no sparsity stats; construct it with "
-                "SparseMatrix.from_dense or force a path policy")
-        kw = dict(policy=policy, cost_model=cost_model, device=a.device,
-                  candidates=cand)
+        kw = dict(policy=policy, cost_model=cost_model, config=config,
+                  device=a.device, candidates=cand)
         if op == PATH_FUSED_ATTN:
             plan = plan_fused_attention(a.stats, *inner_key, **kw)
+        elif op == "spmv":
+            plan = plan_spmv(a.stats, **kw)
         elif op == "sddmm":
             plan = plan_sddmm(a.stats, inner_key, **kw)
         else:
@@ -107,6 +130,8 @@ def matmul(
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
+    config: DispatchConfig = DEFAULT_CONFIG,
+    autotune_cache: Optional[AutotuneCache] = None,
 ) -> torch.Tensor:
     """Y = A @ H through the planned sparse front-end.
 
@@ -114,18 +139,28 @@ def matmul(
     ``Y = act(A @ H + bias + residual)`` with ``act`` one of
     ``"identity" | "relu" | "leaky_relu"`` (or a full
     :class:`repro_torch.kernels.fused.epilogue.Epilogue`).  ``H`` is a
-    2-D tensor on the matrix's device.
+    1-D or 2-D tensor on the matrix's device; a 1-D ``H`` with no tail
+    takes the SpMV lane (``spmv``).
     """
     if not isinstance(a, SparseMatrix):
         raise TypeError(f"matmul expects a SparseMatrix, got {type(a)}")
-    if not isinstance(h, torch.Tensor) or h.ndim != 2:
-        raise ValueError("spmm: H must be a 2-D tensor, got "
-                         f"{getattr(h, 'shape', type(h))}")
+    _check_operand("spmm: H", h, a)
+    h_was_1d = h.ndim == 1
+    if h_was_1d and epilogue is None and bias is None and residual is None:
+        return spmv(a, h, policy=policy, candidates=candidates,
+                    cost_model=cost_model, config=config,
+                    autotune_cache=autotune_cache)
+    if h_was_1d:
+        h = h[:, None]
+        if residual is not None and residual.ndim == 1:
+            residual = residual[:, None]
+    if h.ndim != 2:
+        raise ValueError("spmm: H must be 1-D or 2-D, got shape "
+                         f"{tuple(h.shape)}")
     if h.shape[0] != a.shape[1]:
         raise ValueError(
             f"spmm: H has {h.shape[0]} rows but A has {a.shape[1]} "
             f"columns (A shape {a.shape})")
-    _check_operand("spmm: H", h, a)
     if bias is not None:
         # canonicalize to a [D] vector (scalars broadcast)
         bias = torch.as_tensor(bias, dtype=h.dtype, device=h.device)
@@ -146,17 +181,68 @@ def matmul(
     epi = normalize_epilogue(epilogue, bias, residual)
     policy = normalize_policy(policy)
     cand = tuple(candidates) if candidates else available_paths(a)
+    h = h.contiguous()
+
+    def exec_thunk(p):
+        if epi is None:
+            return lambda: autodiff.spmm_exec(p, a, h)
+        return lambda: autodiff.spmm_epilogue_exec(p, epi, a, h, bias,
+                                                   residual)
+
     plan = _resolve_plan("spmm", a, h.shape[1], h.dtype, policy, cand,
-                         cost_model,
+                         cost_model, config, autotune_cache, exec_thunk,
                          key_extra=() if epi is None else (epi,),
                          fused=None if epi is None else epi.describe())
     record_plan(plan)
-    h = h.contiguous()
     vals = autodiff.read_values(a, plan.path)
     if epi is None:
-        return autodiff.SpMM.apply(plan.path, a, vals, h)
-    return autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
-                                       residual)
+        y = autodiff.SpMM.apply(plan.path, a, vals, h)
+    else:
+        y = autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
+                                        residual)
+    return y[:, 0] if h_was_1d else y
+
+
+# ---------------------------------------------------------------------------
+# SpMV
+# ---------------------------------------------------------------------------
+
+
+def spmv(
+    a: SparseMatrix,
+    x: torch.Tensor,
+    *,
+    policy: str = POLICY_AUTO,
+    candidates: Optional[Tuple[str, ...]] = None,
+    cost_model: CostModel = DEFAULT_COST_MODEL,
+    config: DispatchConfig = DEFAULT_CONFIG,
+    autotune_cache: Optional[AutotuneCache] = None,
+) -> torch.Tensor:
+    """y = A @ x for a [N] vector, through the planned front-end.
+
+    Plans on the SpMM cost surface at unit width (op tag ``"spmv"`` in the
+    dispatch log) and runs each layout's direct reduction
+    (``paths.spmv_*``); ``matmul`` delegates its 1-D branch here.
+    Differentiable (``autodiff.SpMV``): dx = Aᵀ ḡ, dA a rank-1 SDDMM.
+    """
+    if not isinstance(a, SparseMatrix):
+        raise TypeError(f"spmv expects a SparseMatrix, got {type(a)}")
+    _check_operand("spmv: x", x, a)
+    if x.ndim != 1:
+        raise ValueError(f"spmv: x must be 1-D, got shape {tuple(x.shape)}")
+    if x.shape[0] != a.shape[1]:
+        raise ValueError(
+            f"spmv: x has {x.shape[0]} rows but A has {a.shape[1]} "
+            f"columns (A shape {a.shape})")
+    policy = normalize_policy(policy)
+    cand = tuple(candidates) if candidates else available_paths(a)
+    x = x.contiguous()
+    plan = _resolve_plan("spmv", a, 1, x.dtype, policy, cand, cost_model,
+                         config, autotune_cache,
+                         lambda p: lambda: autodiff.spmv_exec(p, a, x))
+    record_plan(plan)
+    return autodiff.SpMV.apply(plan.path, a,
+                               autodiff.read_values(a, plan.path), x)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +258,8 @@ def sddmm(
     policy: str = POLICY_AUTO,
     candidates: Optional[Tuple[str, ...]] = None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
+    config: DispatchConfig = DEFAULT_CONFIG,
+    autotune_cache: Optional[AutotuneCache] = None,
 ) -> SparseMatrix:
     """S = A ⊙ (B @ C) at A's stored entries.
 
@@ -197,7 +285,8 @@ def sddmm(
     policy = normalize_policy(policy)
     cand = tuple(candidates) if candidates else available_paths(a)
     plan = _resolve_plan("sddmm", a, b.shape[1], b.dtype, policy, cand,
-                         cost_model)
+                         cost_model, config, autotune_cache,
+                         lambda p: lambda: autodiff.sddmm_values(p, a, b, c))
     record_plan(plan)
     vals = autodiff.SDDMMValues.apply(plan.path, a,
                                       autodiff.read_values(a, plan.path), b, c)
@@ -224,6 +313,8 @@ def fused_graph_attention(
     policy: str = POLICY_AUTO,
     candidates: Optional[Tuple[str, ...]] = None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
+    config: DispatchConfig = DEFAULT_CONFIG,
+    autotune_cache: Optional[AutotuneCache] = None,
 ) -> torch.Tensor:
     """Y = softmax_row(act(q kᵀ ⊙ pattern(A))) @ V, in one dispatch.
 
@@ -268,9 +359,12 @@ def fused_graph_attention(
     policy = normalize_policy(policy)
     cand = tuple(candidates) if candidates else available_paths(a)
     slope = float(negative_slope)
-    plan = _resolve_plan(PATH_FUSED_ATTN, a, (q.shape[1], v.shape[1]),
-                         q.dtype, policy, cand, cost_model,
-                         key_extra=(edge_act, slope), fused="attn")
+    plan = _resolve_plan(
+        PATH_FUSED_ATTN, a, (q.shape[1], v.shape[1]), q.dtype, policy, cand,
+        cost_model, config, autotune_cache,
+        lambda p: lambda: autodiff.fused_attention_exec(p, a, q, k, v,
+                                                        edge_act, slope),
+        key_extra=(edge_act, slope), fused="attn")
     record_plan(plan)
     y = autodiff.FusedAttention.apply(plan.path, a,
                                       autodiff.read_values(a, plan.path), q, k,

@@ -8,30 +8,88 @@ their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.formats import BlockCOO, BlockELL, SellCS
+from repro_torch.core.formats import CSR, BlockCOO, BlockELL, SellCS
+from repro_torch.device import resolve_device
 from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
 from repro_torch.kernels.sddmm.sell import sample_sell_blocked
 from repro_torch.kernels.spmm.ops import spmm_blockell
 from repro_torch.kernels.spmm.sell import spmm_sell_blocked
 from repro_torch.kernels.spmm import transposed
+from repro_torch.memo import Table, memoized
 
 
 # ---------------------------------------------------------------------------
 # Element-granular ("csr") paths
 # ---------------------------------------------------------------------------
 
+# each element triplet's row order, per structure (keyed on the row ids)
+_ROW_ORDERS: Table = {}
+
+
+def csr_to_device_arrays(csr: CSR, device="cuda"
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Expand host CSR to (row_ids, col_ids, values) tensors on
+    ``device``, int32 indices."""
+    device = resolve_device(device)
+    row_ids = np.repeat(np.arange(csr.shape[0], dtype=np.int32),
+                        np.diff(csr.indptr))
+    return (torch.from_numpy(row_ids).to(device),
+            torch.from_numpy(csr.indices.astype(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(csr.values)).to(device))
+
+
+def row_order(row_ids: torch.Tensor, col_ids: torch.Tensor, num_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(``perm``, ``cols``, ``lengths``): a stable permutation of the
+    elements by row, the column ids in that order, and each row's element
+    count (int64 [num_rows]).  Built on the device with no host sync (a
+    serving batch composes new row ids every call) and memoized weakly on
+    the row ids, once per structure."""
+
+    def build():
+        rows, perm = torch.sort(row_ids.long(), stable=True)
+        bounds = torch.searchsorted(
+            rows, torch.arange(num_rows + 1, device=rows.device))
+        return perm, col_ids[perm], bounds.diff()
+
+    check = (id(col_ids), num_rows, row_ids._version, col_ids._version)
+    return memoized(_ROW_ORDERS, row_ids, check, build)
+
+
+def _row_sums(terms: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of its ``terms`` (f32, along dim 0, in the order of
+    ``row_order``): one ``segment_reduce``, which sums every row in one
+    fixed order (``index_add_`` on CUDA adds with atomics); ``unsafe``
+    skips its checks of ``lengths``, which ``row_order`` builds, and the
+    host syncs they take."""
+    if terms.shape[0] == 0:
+        return terms.new_zeros((lengths.shape[0],) + terms.shape[1:])
+    return torch.segment_reduce(terms, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
 
 def spmm_elements(row_ids, col_ids, values, h, num_rows: int):
-    """Y = A @ H via gather + ``index_add_`` (element-granular, f32)."""
-    gathered = values[:, None].float() * h[col_ids].float()
-    out = torch.zeros((num_rows, h.shape[1]), dtype=torch.float32,
-                      device=h.device)
-    return out.index_add_(0, row_ids, gathered).to(h.dtype)
+    """Y = A @ H via gather + a fixed-order segmented sum over each row's
+    elements (element-granular, f32 sums); the triplet's rows need not
+    ascend (``A.T``'s swapped triplet)."""
+    perm, cols, lengths = row_order(row_ids, col_ids, num_rows)
+    # scaled in place: the gather is the one E x D array
+    gathered = h[cols.long()].float().mul_(values[perm][:, None].float())
+    return _row_sums(gathered, lengths).to(h.dtype)
+
+
+def spmv_elements(row_ids, col_ids, values, x, num_rows: int):
+    """y = A @ x for a [N] vector, as ``spmm_elements`` (fixed-order
+    segmented sums)."""
+    perm, cols, lengths = row_order(row_ids, col_ids, num_rows)
+    prod = values[perm].float() * x[cols.long()].float()
+    return _row_sums(prod, lengths).to(x.dtype)
 
 
 def sddmm_element_dots(row_ids, col_ids, b, c):
@@ -40,6 +98,57 @@ def sddmm_element_dots(row_ids, col_ids, b, c):
     bs = b[row_ids].float()    # [nnz, K]
     cs = c.T[col_ids].float()  # [nnz, K]
     return (bs * cs).sum(dim=-1).to(b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SpMV (d = 1) paths: a direct reduction per layout
+# ---------------------------------------------------------------------------
+#
+# y = A @ x for a [N] vector.  The reference has no Pallas kernel here: each
+# layout is one plain reduction, and none sums with atomics (the element
+# and Block-COO routes take the fixed-order segmented sum).
+
+
+def spmv_ell(ell: BlockELL, x):
+    """y = A @ x with A in Block-ELL; x already padded to ell.shape[1]:
+    one einsum over the x-blocks each slot points at, in
+    ``result_type(blocks, x)``."""
+    x_blocks = x.reshape(ell.shape[1] // ell.bn, ell.bn)
+    gathered = x_blocks[ell.indices.long()]  # [nbr, W, bn]
+    y = torch.einsum("rwmn,rwn->rm", ell.blocks.float(), gathered.float())
+    return y.reshape(ell.shape[0]).to(torch.promote_types(ell.blocks.dtype,
+                                                          x.dtype))
+
+
+def spmv_coo(coo: BlockCOO, x):
+    """y = A @ x with A in Block-COO; x padded to coo.shape[1]: each block's
+    product, then a fixed-order segmented sum over each block-row's
+    blocks."""
+    bm, bn = coo.bm, coo.bn
+    x_blocks = x.reshape(coo.shape[1] // bn, bn)
+    prods = torch.einsum("emn,en->em", coo.blocks.float(),
+                         x_blocks[coo.cols.long()].float())
+    perm, _, lengths = row_order(coo.rows, coo.cols, coo.shape[0] // bm)
+    out = _row_sums(prods[perm], lengths)
+    return out.reshape(coo.shape[0]).to(torch.promote_types(
+        coo.blocks.dtype, x.dtype))
+
+
+def spmv_sell(sell: SellCS, x):
+    """y = A @ x with A in SELL-C-σ: one [rows, w] product and row sum per
+    width bucket, then the rows un-permuted (rows of pruned slices read an
+    appended 0)."""
+    out_dtype = torch.promote_types(sell.slot_vals.dtype, x.dtype)
+    if not sell.buckets:
+        return x.new_zeros((sell.shape[0],), dtype=out_dtype)
+    outs, off = [], 0
+    for _, rows, width in sell.buckets:
+        cols = sell.slot_cols[off:off + rows * width].reshape(rows, width)
+        vals = sell.slot_vals[off:off + rows * width].reshape(rows, width)
+        outs.append((vals.float() * x[cols.long()].float()).sum(dim=-1))
+        off += rows * width
+    packed = torch.cat(outs + [outs[0].new_zeros(1)])
+    return packed[sell.out_gather.long()].to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -99,7 +99,8 @@ from repro_torch.models.gnn import (build_graph, graph_candidates, init_gat,
 from repro_torch.serve.engine import GNNServeConfig, GNNServingEngine
 from repro_torch.sparse.matrix import SparseMatrix
 from repro_torch.sparse.paths import ell_to_coo
-from repro_torch.sparse.ops import fused_graph_attention, matmul, sddmm
+from repro_torch.sparse.ops import (fused_graph_attention, matmul, sddmm,
+                                    spmv)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1460,3 +1461,197 @@ def test_blockdiag_gradients_are_reproducible_on_card(dev):
         grads[str(device)] = runs[0]
     for got, want in zip(grads[str(dev)], grads["cpu"]):
         torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The dispatch remainder: autotune on the card, the SpMV lane, the csr
+# route's fixed order
+# ---------------------------------------------------------------------------
+
+DISPATCH_KERNELS = {"K1": spmm_blockell_kernel, "K2": spmm_sell_kernel,
+                    "K3": sddmm_blockcoo_kernel, "K4": sddmm_sell_kernel,
+                    "N1": spmm_blockell_t_kernel}
+
+
+def _launches():
+    return {k: f.launches for k, f in DISPATCH_KERNELS.items()}
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in _launches().items() if n - before[k]}
+
+
+def test_autotune_measure_waits_for_the_card(dev):
+    """A thunk that only queues work (the card spins ≈ 20 ms) is timed at
+    the card's pace: ``measure`` synchronizes after every call."""
+    from repro_torch.dispatch import measure
+
+    cycles = 40_000_000
+
+    def spin():
+        torch.cuda._sleep(cycles)
+        return torch.empty(1, device=dev)
+
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    spin_us = start.elapsed_time(end) * 1e3
+    m = measure({"spin": spin, "empty": lambda: torch.empty(1, device=dev)},
+                warmup=1, iters=3)
+    assert m.path == "empty"
+    assert m.timings_us["spin"] >= 0.9 * spin_us > 1000
+
+
+@pytest.mark.parametrize("formats", [("ell", "csr"), ("ell", "sell", "csr")])
+def test_autotune_on_card_picks_a_finite_winner(dev, formats):
+    """Every candidate is timed (finite), the winner is cached, and a
+    matrix with a fresh plan memo plans it as "autotune: cached winner"
+    and launches only the winner's kernel."""
+    from repro_torch.dispatch import AutotuneCache, last_plan
+
+    density = 0.1 if "sell" not in formats else 0.005
+    dense = _sparse(70, 2048, 2048, density)
+    a = SparseMatrix.from_dense(dense, formats=formats, block=(64, 64),
+                                device=dev)
+    h = torch.randn(2048, 16, device=dev)
+    cache = AutotuneCache()
+    y = matmul(a, h, policy="autotune", autotune_cache=cache)
+    plan = last_plan("spmm")
+    assert set(plan.timings_us) == set(formats) | {"dense"}
+    assert all(math.isfinite(t) for t in plan.timings_us.values())
+    torch.testing.assert_close(
+        y, torch.from_numpy(dense).to(dev) @ h, **TOL)
+    before = _launches()
+    again = matmul(a.with_stats(a.stats), h, policy="autotune",
+                   autotune_cache=cache)
+    torch.cuda.synchronize()
+    hit = last_plan("spmm")
+    assert hit.reason == "autotune: cached winner" and hit.path == plan.path
+    want = {"ell": {"K1": 1}, "sell": {"K2": 1}}.get(plan.path, {})
+    assert _launched(before) == want
+    torch.testing.assert_close(again, y, **TOL)
+
+
+def test_autotune_lets_a_failing_kernel_raise(dev, monkeypatch):
+    """K1's launch fails (its entry point returns an error) while autotune
+    times the ell candidate: ``KernelError`` propagates; nothing is
+    cached."""
+    from repro_torch.dispatch import AutotuneCache
+    from repro_torch.resilience.errors import KernelError
+
+    a = SparseMatrix.from_dense(_sparse(71, 512, 512, 0.1),
+                                formats=("ell", "csr"), device=dev)
+    h = torch.randn(512, 8, device=dev)
+    real = _build.entry
+    monkeypatch.setattr(_build, "entry", lambda name: (
+        lambda *args: 700) if name == "spmm_blockell" else real(name))
+    cache = AutotuneCache()
+    with pytest.raises(KernelError):
+        matmul(a, h, policy="autotune", autotune_cache=cache)
+    assert len(cache) == 0
+
+
+def test_k3_k4_at_k1_and_n1_at_d1(dev):
+    """The SpMV backward's widths: K3 (weighted and without a mask) and K4
+    at K = 1, N1 at D = 1 (with an empty block column and a padding
+    block-row), each against its plain version and launched twice for
+    equal bits."""
+    dense = _sparse(72, 301, 277, 0.05)
+    dense[64:128] = 0.0
+    dense[:, 64:128] = 0.0
+    coo = BlockCOO.from_dense(dense, 64, 64, device=dev)
+    b = torch.randn(coo.shape[0], 1, device=dev)
+    c = torch.randn(1, coo.shape[1], device=dev)
+    for mask in (coo.blocks, None):
+        ops = (coo.rows, coo.cols, mask, b, c)
+        kw = dict(block=(64, 64), out_dtype=torch.float32)
+        got = sddmm_blockcoo_kernel(*ops, **kw)
+        torch.testing.assert_close(got, sddmm_blockcoo_ref(*ops, **kw),
+                                   **TOL)
+        assert torch.equal(got, sddmm_blockcoo_kernel(*ops, **kw))
+    sell = SellCS.from_dense(_sparse(73, 301, 277, 0.004), block=(64, 64),
+                             device=dev)
+    ops = (*sddmm_sell_operands(sell), torch.randn(301, 1, device=dev),
+           torch.randn(1, 277, device=dev))
+    got = sddmm_sell_kernel(*ops)
+    torch.testing.assert_close(got, sddmm_sell_slots_ref(*ops), **TOL)
+    assert torch.equal(got, sddmm_sell_kernel(*ops))
+    ell = BlockELL.from_dense(dense, 64, 64, device=dev)
+    ops = (*blockell_columns(ell), ell.blocks,
+           torch.randn(ell.shape[0], 1, device=dev))
+    got = spmm_blockell_t_kernel(*ops)
+    torch.testing.assert_close(got, spmm_blockell_t_ref(*ops), **TOL)
+    assert torch.equal(got, spmm_blockell_t_kernel(*ops))
+    assert not bool(got[64:128].any())
+    x = torch.randn(301, device=dev)
+    torch.testing.assert_close(spmm_sell_t(sell, x[:, None]),
+                               torch.from_numpy(sell.to_dense()).to(dev).T
+                               @ x[:, None], **TOL)
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell", "csr"])
+def test_spmv_gradients_are_reproducible(dev, kind):
+    """``loss = (tanh(A.with_data(w) @ x) * weight).sum()`` (``spmv``
+    forced onto the path; tanh keeps the cotangent's scale at 1, as the
+    other backward tests do) twice without
+    deterministic mode: dx and dA equal per ``torch.equal``, within
+    tolerance of the CPU, with the backward's launches counted (ell: N1
+    for dx at D = 1, K3 for dA at K = 1; sell: K2 over Aᵀ's row view and
+    K4; csr: none, the fixed-order segmented sums)."""
+    density = 0.004 if kind == "sell" else 0.1
+    dense = _sparse(74, 1000, 900, density)
+    x_np = np.random.default_rng(75).standard_normal(900).astype(np.float32)
+    weight = torch.from_numpy(np.random.default_rng(77).standard_normal(
+        1000).astype(np.float32))
+    grads = {}
+    for device in ("cpu", dev):
+        a = SparseMatrix.from_dense(dense, formats=(kind,), block=(64, 64),
+                                    device=device)
+        runs = []
+        for _ in range(2):
+            w = a.data.clone().requires_grad_(True)
+            x = torch.from_numpy(x_np).to(device).requires_grad_(True)
+            before = _launches()
+            (torch.tanh(spmv(a.with_data(w), x, policy=kind))
+             * weight.to(device)).sum().backward()
+            if device != "cpu":
+                torch.cuda.synchronize()
+                want = {"ell": {"N1": 1, "K3": 1},
+                        "sell": {"K2": 1, "K4": 1}, "csr": {}}[kind]
+                assert _launched(before) == want
+            runs.append((w.grad, x.grad))
+        if device != "cpu":
+            assert all(torch.equal(g, h) for g, h in zip(*runs))
+        grads[str(device)] = runs[0]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_csr_element_route_sums_in_a_fixed_order(dev):
+    """``spmm_elements`` / ``spmv_elements`` on a triplet whose rows do not
+    ascend (as ``A.T``'s swapped triplet), with hub rows: two runs equal
+    per ``torch.equal``, and within tolerance of the CPU."""
+    from repro_torch.sparse import paths
+
+    rng = np.random.default_rng(76)
+    n, nnz = 4096, 200_000
+    rows = np.concatenate([rng.integers(0, n, nnz - 20_000),
+                           np.full(20_000, 7)]).astype(np.int32)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    order = rng.permutation(nnz)
+    t = [torch.from_numpy(x[order]).to(dev) for x in (rows, cols, vals)]
+    h = torch.randn(n, 64, device=dev)
+    first = paths.spmm_elements(*t, h, n)
+    assert torch.equal(first, paths.spmm_elements(*t, h, n))
+    v = h[:, 0].contiguous()
+    y = paths.spmv_elements(*t, v, n)
+    assert torch.equal(y, paths.spmv_elements(*t, v, n))
+    cpu = [x.cpu() for x in t]
+    torch.testing.assert_close(first.cpu(),
+                               paths.spmm_elements(*cpu, h.cpu(), n), **TOL)
+    torch.testing.assert_close(y.cpu(),
+                               paths.spmv_elements(*cpu, v.cpu(), n), **TOL)

@@ -61,3 +61,26 @@ def test_subpackage_imports_alone(sub):
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("sub", ["dispatch", "sparse"])
+def test_public_surface_matches_reference(sub):
+    """``repro_torch.dispatch`` and ``repro_torch.sparse`` export the
+    reference's names (but the deprecated ``SparseOperand``, not ported
+    yet), each bound, and import alone without JAX or ``repro``."""
+    import importlib
+    import json
+
+    code = (f"import json, sys, repro_torch.{sub} as m; "
+            "bad = sorted(x for x in sys.modules "
+            "if x.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "unbound = [n for n in m.__all__ if not hasattr(m, n)]; "
+            "print(json.dumps(sorted(m.__all__))); "
+            "sys.exit(1 if bad or unbound else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    ref = importlib.import_module(f"repro.{sub}")
+    assert json.loads(out.stdout) == sorted(set(ref.__all__)
+                                            - {"SparseOperand"})
