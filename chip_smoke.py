@@ -204,10 +204,28 @@ Phases, each of which must pass or the script exits non-zero:
      the card at its defaults and at n = 4096, d = 128, the constants and
      the plans they would give (graphs (a), (b), their fused GAT and 6a's
      buckets) printed beside the shipped model's, nothing changed.
-  8. A JSON line of the backward shapes, one of the serving shapes (phase
-     6's kernel rows and runs), one of phase 7, a JSON line of the
-     kernels, the script's wall time, the card line, and the final JSON
-     line.
+  8. The serving fleet (``repro_torch.serve.fleet``), after phase 7, at
+     bench_serve_fleet's full settings: three drifting phases of 120
+     requests (sizes 24-48, 96-256, 24-256; four a phase from
+     ``default_rng(11)``), density 0.1, d = 8, hedging after 10 s, 2
+     restarts a worker; every distinct (size, d) warmed with one
+     ``infer``, then the storm with one live worker killed at request 180.
+     Thread workers at 1, 2 and 4, each at ``form="auto"`` and
+     ``form="ell"`` (K1 on 16 x 16 blocks over the continuous engine's
+     block-diagonal lanes; its launches over the storm, counted between
+     counts set to 0 and read, must be above 0), the planned route of every
+     lane printed; the 2-worker ell storm served a second time (every
+     request the same bits) with one profiled pass (device busy); then 2
+     ``spawn`` process workers at ``form="ell"``, one SIGKILLed, each
+     child's spawn-to-ready time printed.  Every result of every storm is
+     held to the f64 dense oracle ``dense @ h``; none may fail or be lost,
+     and no death, kill, restart or ``resilience_*`` counter may move but
+     the one kill's.  Req/s, p50 / p99 and p99 before, during (2 s) and
+     after the kill are printed, not gated.
+  9. A JSON line of the backward shapes, one of the serving shapes (phase
+     6's kernel rows and runs), one of phase 7, one of phase 8 (the
+     fleet), a JSON line of the kernels, the script's wall time, the card
+     line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -366,6 +384,20 @@ ADAPTIVE_WARM_PASSES = 5
 # also inserts once outside the packing, which forces one repack
 DELTA_BATCHES = 3
 DELTA_UPDATES, DELTA_DELETES, DELTA_INSERTS = 2000, 1000, 1000
+# phase 8: bench_serve_fleet's full settings (three drifting phases of 120
+# requests, four sizes a phase drawn from default_rng(11), density 0.1,
+# d = 8; hedging after 10 s, 2 restarts a worker), one live worker killed
+# at the storm's half-way request
+FLEET_PER_PHASE = 120
+FLEET_PHASES = ((24, 48), (96, 256), (24, 256))
+FLEET_D = 8
+FLEET_DENSITY = 0.1
+FLEET_SEED = 11
+FLEET_THREAD_WORKERS = (1, 2, 4)
+FLEET_FORMS = ("auto", "ell")
+FLEET_PROCESS_WORKERS = 2
+FLEET_FAILOVER_S = 2.0  # submits this long after the kill are "during"
+FLEET_TIMEOUT_S = 300.0
 
 
 def log(*args):
@@ -410,11 +442,11 @@ class Port:
         from repro_torch.sparse import autodiff, matrix, ops, paths
         from repro_torch.train import gnn as train
         from repro_torch import batch
-        from repro_torch.serve import runtime
+        from repro_torch.serve import fleet, runtime
 
         self.cfg = paper_gnn.CONFIG
         self.GNNConfig = paper_gnn.GNNConfig
-        self.batch, self.runtime = batch, runtime
+        self.batch, self.runtime, self.fleet = batch, runtime, fleet
         self.lm_cfg = gemma3_4b.CONFIG
         self.lm_attention = lm_attention
         self.bsattn, self.bsattn_kernel = bsattn_ops, bsattn_kernel
@@ -3492,6 +3524,246 @@ def serving_phase(torch, np, port):
     return rows, delta, runs
 
 
+def fleet_workload(np):
+    """bench_serve_fleet's request mix at its full settings: three drifting
+    phases (small, large, both), four sizes drawn a phase; each request
+    with its f64 dense oracle ``dense @ h``, computed on the host."""
+    rng = np.random.default_rng(FLEET_SEED)
+    reqs = []
+    for lo, hi in FLEET_PHASES:
+        sizes = [int(s) for s in rng.integers(lo, hi, size=4)]
+        for _ in range(FLEET_PER_PHASE):
+            n = sizes[int(rng.integers(len(sizes)))]
+            dense = (rng.random((n, n)) < FLEET_DENSITY).astype(np.float32)
+            h = rng.standard_normal((n, FLEET_D)).astype(np.float32)
+            reqs.append((dense, h,
+                         dense.astype(np.float64) @ h.astype(np.float64)))
+    return reqs
+
+
+def fleet_counters(port) -> dict:
+    """Every ``fleet_*`` and ``resilience_*`` counter series, keyed by
+    (name, labels)."""
+    counters = port.obs.REGISTRY.snapshot()["counters"]
+    return {(name, labels): v for name, series in counters.items()
+            if name.startswith(("fleet_", "resilience_"))
+            for labels, v in series.items()}
+
+
+def counter_moves(before, after) -> dict:
+    return {f"{name}{{{labels}}}": after[(name, labels)]
+            - before.get((name, labels), 0)
+            for name, labels in after
+            if after[(name, labels)] != before.get((name, labels), 0)}
+
+
+def wait_ready(fleet, n, t0) -> dict:
+    """Seconds from ``t0`` until each worker is first live (``n`` of them)."""
+    ready = {}
+    deadline = time.perf_counter() + FLEET_TIMEOUT_S
+    while len(ready) < n:
+        for ws in fleet.sup.states():
+            if ws.status == "live" and ws.name not in ready:
+                ready[ws.name] = time.perf_counter() - t0
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 8: {len(ready)} of {n} workers live "
+                                 f"after {FLEET_TIMEOUT_S} s")
+        time.sleep(0.002)
+    return ready
+
+
+def p99(np, xs):
+    return float(np.percentile(np.asarray(xs), 99)) if xs else None
+
+
+def fleet_storm(torch, np, port, reqs, *, backend, workers, form,
+                profile=False):
+    """One fleet at bench_serve_fleet's settings: every distinct (size, d)
+    warmed with one ``infer``, then the storm of every request, one live
+    worker killed (``_kill_worker``: SIGKILL for a process) at the half-way
+    request; launch counts set to 0 just before the storm and read just
+    after (in-process: thread workers only).  Latency is submit to the
+    future's resolution (a done callback).  Gates, over the fleet's life
+    up to ``close()``: every result within the oracle's tolerance, none
+    failed or lost, one death, one kill and one restart (the kill's) and
+    no ``resilience_*`` counter move but that restart's recovery.  Returns
+    the summary and the results."""
+    label = f"8 {backend} x{workers} form={form}"
+    fl = port.fleet
+    cfg = fl.FleetConfig(backend=backend, workers=workers,
+                         hedge_after_ms=10_000.0, max_restarts_per_worker=2,
+                         worker=fl.WorkerConfig(form=form, device=DEVICE))
+    before = fleet_counters(port)
+    t0 = time.perf_counter()
+    fleet = fl.ServingFleet(cfg)
+    try:
+        ready = wait_ready(fleet, workers, t0)
+        seen = set()
+        for dense, h, _ in reqs:
+            if (len(dense), h.shape[1]) not in seen:
+                seen.add((len(dense), h.shape[1]))
+                fleet.infer(dense, h, timeout=FLEET_TIMEOUT_S)
+        torch.cuda.synchronize()
+        port.reset_counts()
+        kill_at = len(reqs) // 2
+        futs, t_sub, t_done = [], [], [None] * len(reqs)
+        t_start = time.perf_counter()
+        for i, (dense, h, _) in enumerate(reqs):
+            if i == kill_at:
+                if not fleet.sup.live():
+                    raise AssertionError(f"{label}: no live worker to kill")
+                victim = fleet.sup.live()[0]
+                gen = fleet.sup.get(victim).generation
+                t_kill = time.perf_counter()
+                fleet._kill_worker(victim)
+            t_sub.append(time.perf_counter())
+            fut = fleet.submit(dense, h)
+            fut.add_done_callback(
+                lambda _, i=i: t_done.__setitem__(i, time.perf_counter()))
+            futs.append(fut)
+        back = None  # kill to the victim's slot live again
+        deadline = time.perf_counter() + FLEET_TIMEOUT_S
+        while back is None or not all(f.done() for f in futs):
+            ws = fleet.sup.get(victim)
+            if back is None and ws.generation > gen and ws.status == "live":
+                back = time.perf_counter() - t_kill
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"{label}: {sum(not f.done() for f in futs)} requests "
+                    f"pending, victim back {back}, after {FLEET_TIMEOUT_S} s")
+            time.sleep(0.002)
+        errors = [(i, f.exception()) for i, f in enumerate(futs)
+                  if f.exception() is not None]
+        outs = [f.result() for f in futs] if not errors else None
+        elapsed = max(t_done) - t_start
+        torch.cuda.synchronize()
+        counts = port.counts()
+        rep = fleet.report()
+        busy = profiled_pass(torch, fleet, [d for d, _, _ in reqs],
+                             [(i, h) for i, (_, h, _) in enumerate(reqs)],
+                             label) if profile else None
+        # read before close(): a worker whose thread or process exits on
+        # the "stop" of close() can still be seen dead by a monitor tick
+        # already under way (the reference's behaviour)
+        moves = counter_moves(before, fleet_counters(port))
+    finally:
+        fleet.close()
+    exits = {ws.name: ws.handle._proc.exitcode
+             for ws in fleet.sup.states()} if backend == "process" else None
+    if errors:
+        raise AssertionError(f"{label}: {len(errors)} requests failed, the "
+                             f"first {errors[0][0]}: {errors[0][1]!r}")
+    worst = hold_requests(np, label, outs, [o for *_, o in reqs])
+    lat = [(d - s) * 1e3 for s, d in zip(t_sub, t_done)]
+    before_k = [ms for s, ms in zip(t_sub, lat) if s < t_kill]
+    during = [ms for s, ms in zip(t_sub, lat)
+              if t_kill <= s < t_kill + FLEET_FAILOVER_S]
+    after_k = [ms for s, ms in zip(t_sub, lat)
+               if s >= t_kill + FLEET_FAILOVER_S]
+    lanes = {}
+    for wrep in rep["worker_reports"].values():
+        for lane, v in wrep.get("lanes", {}).items():
+            lanes.setdefault(lane, set()).add(v["form"])
+    lanes = {k: "/".join(sorted(v)) for k, v in sorted(lanes.items())}
+    fleet_moves = {k: v for k, v in moves.items() if k.startswith("fleet_")}
+    res_moves = {k: v for k, v in moves.items()
+                 if k.startswith("resilience_")}
+    out = {"backend": backend, "workers": workers, "form": form,
+           "n_requests": len(reqs), "req_per_s": len(reqs) / elapsed,
+           "p50_ms": float(np.percentile(lat, 50)), "p99_ms": p99(np, lat),
+           "p99_before_ms": p99(np, before_k),
+           "p99_during_failover_ms": p99(np, during),
+           "p99_after_ms": p99(np, after_k),
+           "ready_s": ready, "victim": victim, "victim_back_s": back,
+           "requests_lost": rep["fleet"]["requests_lost"],
+           "completed": rep["completed"], "failed": rep["failed"],
+           "oracle_max_abs_err": worst, "lanes": lanes,
+           "launches": {k: v for k, v in counts.items() if v},
+           "fleet_counters": fleet_moves, "resilience_counters": res_moves,
+           "device_busy": busy}
+    if exits is not None:
+        out["exit_codes"] = exits
+    log(f"{label}: {out['req_per_s']:.1f} req/s, p50 {out['p50_ms']:.3f} ms,"
+        f" p99 {out['p99_ms']:.3f} ms (before the kill {out['p99_before_ms']}"
+        f", during {out['p99_during_failover_ms']}, after "
+        f"{out['p99_after_ms']}); ready after {ready} s; killed {victim} at "
+        f"request {kill_at}, its slot live again after {back:.3f} s; lost "
+        f"{out['requests_lost']}, failed {out['failed']}; results vs the "
+        f"f64 oracle max_abs_err {worst:.3e}; launches {out['launches']}")
+    log(f"{label}: lanes (planned route) {lanes}"
+        + (f"; the children's exit codes after close() {exits}"
+           if exits is not None else ""))
+    log(f"{label}: counters moved {moves}")
+    if rep["fleet"]["requests_lost"] or rep["failed"]:
+        raise AssertionError(f"{label}: {rep['fleet']['requests_lost']} lost,"
+                             f" {rep['failed']} failed")
+    kill = {f"fleet_{what}{{{labels}worker={victim}}}": 1 for what, labels
+            in (("worker_deaths_total", "reason=killed,"),
+                ("kills_total", ""), ("restarts_total", ""))}
+    if {k: v for k, v in fleet_moves.items() if k.startswith((
+            "fleet_worker_deaths", "fleet_kills", "fleet_restarts"))} != kill:
+        raise AssertionError(f"{label}: deaths or restarts beyond the one "
+                             f"kill: {fleet_moves}")
+    if res_moves != {"resilience_recoveries_total{site=fleet}": 1}:
+        raise AssertionError(f"{label}: resilience counters moved beyond "
+                             f"the kill's restart: {res_moves}")
+    return out, outs
+
+
+def fleet_phase(torch, np, port):
+    """Phase 8: the serving fleet at bench_serve_fleet's full settings.
+    Thread workers at 1, 2 and 4 on both forms (K1 at 16 x 16 on the ell
+    runs, counted), the 2-worker ell storm served a second time for equal
+    bits (and profiled), then 2 spawned process workers at ``form="ell"``,
+    one SIGKILLed.  Returns the phase summary and K1's storm launches."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    reqs = fleet_workload(np)
+    runs, k1 = {}, 0
+    for workers in FLEET_THREAD_WORKERS:
+        for form in FLEET_FORMS:
+            run, outs = fleet_storm(torch, np, port, reqs, backend="thread",
+                                    workers=workers, form=form)
+            runs[f"thread_{workers}w_{form}"] = run
+            k1 += run["launches"].get("K1", 0)
+            if form == "ell" and not run["launches"].get("K1"):
+                raise AssertionError(f"phase 8 thread x{workers} ell: K1 "
+                                     "was not launched")
+            if form == "ell" and workers == 2:
+                first = outs
+    run, again = fleet_storm(torch, np, port, reqs, backend="thread",
+                             workers=2, form="ell", profile=True)
+    k1 += run["launches"].get("K1", 0)
+    same = all(np.array_equal(a, b) for a, b in zip(first, again))
+    run["same_bits_as_first"] = same
+    runs["thread_2w_ell_again"] = run
+    log(f"8 thread x2 form=ell served twice: "
+        f"{'the same bits' if same else 'different bits'}")
+    if not same:
+        raise AssertionError("phase 8: the 2-worker ell storm served twice "
+                             "gave different bits")
+    # what a spawned worker pays before it can beat at all
+    probe = subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); "
+         "import torch; print(time.perf_counter() - t)"],
+        capture_output=True, text=True, check=True, timeout=120)
+    import_s = float(probe.stdout.strip().splitlines()[-1])
+    log(f"8: import torch in a fresh interpreter {import_s:.3f} s")
+    run, _ = fleet_storm(torch, np, port, reqs, backend="process",
+                         workers=FLEET_PROCESS_WORKERS, form="ell")
+    run["torch_import_s"] = import_s
+    runs[f"process_{FLEET_PROCESS_WORKERS}w_ell"] = run
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"phase 8: worker processes left running: "
+                             f"{left}")
+    wall = time.perf_counter() - t0
+    log(f"phase 8: wall {wall:.1f} s; K1 launches over the thread storms "
+        f"{k1}")
+    return {"n_requests": len(reqs), "runs": runs, "wall_s": wall}, k1
+
+
 def main() -> int:
     import torch
 
@@ -3584,6 +3856,8 @@ def main() -> int:
     calibration = calibrate_phase(torch, np, port, {
         "a": dispatch_a.pop("plan_inputs"),
         "b": dispatch_b.pop("plan_inputs")})
+    fleet, fleet_k1 = fleet_phase(torch, np, port)
+    rows["K1"]["launches"] += fleet_k1
 
     kernels = []
     for name in sorted(KERNELS):
@@ -3603,6 +3877,7 @@ def main() -> int:
     print(json.dumps({"dispatch": {"a": dispatch_a, "b": dispatch_b,
                                    "calibrate": calibration}},
                      default=str))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phases 1 "
         f"and 2, the kernel build included, {t_main:.1f} s of it)")

@@ -39,7 +39,10 @@ engine at ``form="ell"`` against the CPU with its launches counted, K2 /
 K6 / K4 / K8 on a SELL composition and on a ``DeltaGraph`` overlay after
 slack inserts, and N1's gradients over a block-diagonal composition run
 twice, equal per ``torch.equal``; a failing K1 launch under ``form="auto"``
-fails its requests and leaves the ell form in service.
+fails its requests and leaves the ell form in service.  The serving
+fleet: a 2-worker thread fleet at ``form="ell"`` on the card (K1 launched)
+against the f64 ``dense @ h``, and one spawned worker with its own CUDA
+context that serves a request and exits with code 0 on ``close()``.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1655,3 +1658,70 @@ def test_csr_element_route_sums_in_a_fixed_order(dev):
                                paths.spmm_elements(*cpu, h.cpu(), n), **TOL)
     torch.testing.assert_close(y.cpu(),
                                paths.spmv_elements(*cpu, v.cpu(), n), **TOL)
+
+
+def _fleet_requests(seed, sizes, d=8):
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for n in sizes:
+        dense = (rng.random((n, n)) < 0.1).astype(np.float32)
+        reqs.append((dense, rng.standard_normal((n, d)).astype(np.float32)))
+    return reqs
+
+
+def test_thread_fleet_on_card_matches_the_oracle(dev):
+    """A 2-worker thread fleet serving on the card at ``form="ell"`` (K1
+    on 16 x 16 blocks over the block-diagonal composition): every result
+    a host array within 1e-4 of the f64 ``dense @ h``, K1 launched, no
+    request failed or lost."""
+    from repro_torch.serve.fleet import (FleetConfig, ServingFleet,
+                                         WorkerConfig)
+
+    reqs = _fleet_requests(81, [24, 40, 96, 130, 24, 200, 40, 96])
+    before = spmm_blockell_kernel.launches
+    fleet = ServingFleet(FleetConfig(
+        backend="thread", workers=2, hedge_after_ms=10_000.0,
+        worker=WorkerConfig(form="ell", device="cuda")))
+    try:
+        assert fleet.wait_live(2, timeout=60)
+        outs = [f.result(timeout=120) for f in
+                [fleet.submit(dense, h) for dense, h in reqs]]
+        rep = fleet.report()
+    finally:
+        fleet.close()
+    assert spmm_blockell_kernel.launches > before
+    for (dense, h), out in zip(reqs, outs):
+        assert isinstance(out, np.ndarray)
+        np.testing.assert_allclose(
+            out, dense.astype(np.float64) @ h.astype(np.float64),
+            rtol=1e-4, atol=1e-5)
+    assert (rep["completed"], rep["failed"]) == (len(reqs), 0)
+    assert rep["fleet"]["requests_lost"] == 0
+
+
+def test_spawned_worker_serves_on_card_and_closes(dev):
+    """One ``spawn`` child worker on the card (its own CUDA context, the
+    kernels loaded from the build directory) serves a request at
+    ``form="ell"`` and exits with code 0 on ``close()``."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.fleet import (FleetConfig, ServingFleet,
+                                         WorkerConfig)
+
+    _build.build(["spmm_blockell"])  # the child loads it, never builds
+    (dense, h), = _fleet_requests(82, [96])
+    fleet = ServingFleet(FleetConfig(
+        backend="process", workers=1, hedge_after_ms=10_000.0,
+        worker=WorkerConfig(form="ell", device="cuda")))
+    try:
+        assert fleet.wait_live(1, timeout=120)
+        out = fleet.infer(dense, h, timeout=120)
+        rep = fleet.report()
+    finally:
+        fleet.close()
+    np.testing.assert_allclose(
+        out, dense.astype(np.float64) @ h.astype(np.float64),
+        rtol=1e-4, atol=1e-5)
+    assert rep["fleet"]["requests_lost"] == 0 and rep["failed"] == 0
+    (ws,) = fleet.sup.states()
+    assert ws.restarts == 0 and not ws.handle.alive()
+    assert ws.handle._proc.exitcode == 0

@@ -13,9 +13,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the port's subpackages, each checked by importing it alone
-SUBPACKAGES = ("batch", "core", "corpus", "data", "dispatch", "kernels",
-               "models", "obs", "resilience", "serve", "serve.runtime",
-               "sparse", "train")
+SUBPACKAGES = ("batch", "core", "corpus", "data", "dispatch", "ft",
+               "kernels", "models", "obs", "resilience", "serve",
+               "serve.fleet", "serve.runtime", "sparse", "train")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -63,11 +63,12 @@ def test_subpackage_imports_alone(sub):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("sub", ["dispatch", "sparse"])
+@pytest.mark.parametrize("sub", ["dispatch", "serve.fleet", "sparse"])
 def test_public_surface_matches_reference(sub):
-    """``repro_torch.dispatch`` and ``repro_torch.sparse`` export the
-    reference's names (but the deprecated ``SparseOperand``, not ported
-    yet), each bound, and import alone without JAX or ``repro``."""
+    """``repro_torch.dispatch``, ``repro_torch.serve.fleet`` and
+    ``repro_torch.sparse`` export the reference's names (but the deprecated
+    ``SparseOperand``, not ported yet), each bound, and import alone
+    without JAX or ``repro``."""
     import importlib
     import json
 
