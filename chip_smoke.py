@@ -222,10 +222,50 @@ Phases, each of which must pass or the script exits non-zero:
      and no death, kill, restart or ``resilience_*`` counter may move but
      the one kill's.  Req/s, p50 / p99 and p99 before, during (2 s) and
      after the kill are printed, not gated.
-  9. A JSON line of the backward shapes, one of the serving shapes (phase
+  9. The LM models (``repro_torch.models.transformer``) and
+     ``ServingEngine``, after phase 8, with gemma3-4b's ``CONFIG`` at full
+     width and depth (34 layers, 3.88 B parameters, ``init_lm`` on the
+     card from ``SEED``):
+       (9a) dense.  f32 (TF32 off): B = 2 prompts of S = 4096 and 16
+            decode steps fed the next tokens (the local layers' banded
+            gather, the global layers' flash loop, a wrapped ring cache),
+            every step's logits held to ``forward_hidden`` teacher-forced
+            over the 4112 tokens (the plain masked-softmax route) with
+            the tied head applied only at the 17 positions compared
+            (``LM_RTOL``); the gate's power: faults planted at run time
+            in the local layers (``LM_PLANTED``: the window one key
+            short, the ring slot or RoPE position one ahead) must leave
+            it, a sound reroute must stay in it; a 7-layer cut at full
+            width held to the port's CPU path on the same weights (B = 1,
+            S = 128, 4 decode steps).
+            bf16 (the config's dtype): ``ServingEngine.generate`` at
+            ``LM_BF16_RUNS`` (B = 4, S = 4096 and B = 8, S = 256, 32 new
+            tokens): wall, tokens/s, peak memory; the prefill and the
+            median decode step timed through the same entry points, one
+            decode step profiled (device busy), and the greedy tokens'
+            agreement with the bf16 teacher-forced argmax (printed);
+       (9b) one ``wi`` pruned at ``sparsify_lm``'s defaults (8 x 8 tiles
+            on 64 x 64 storage): its occupancy and plans, printed (dense
+            expected); then ``sparsify_lm`` at ``LM_PRUNE`` (whole 64 x 64
+            tiles) over the 34 layers, timed, its
+            ``weight_sparsity_report``; every MLP weight must plan ell at
+            every width the runs use; the f32 run of 9a with launch counts
+            read around each decode step (N1 x3 a layer, nothing else)
+            and every step's logits held to ``dense_reference`` through
+            the same entry points; the bf16 runs of 9a; N1 at D = 4, 8,
+            2048 and 16384 on layer 0's ``wi`` and ``wo`` (``Wᵀ H``), held
+            to its plain version beside its bound, ``torch.sparse.mm`` on
+            a CSR of Wᵀ and ``torch.matmul`` on the dense weight;
+       (9c) every LM arch's ``SMOKE_CONFIG`` in f32: prefill and 8 decode
+            steps held to the port's CPU run of the same weights and to
+            the teacher-forced forward, ``lm_loss`` to the CPU's; MoE at
+            capacity_factor = n_experts (no drops) and at its own
+            capacity (drops; held to the CPU only).
+     The main path's N1 launches join the kernel rows'.
+ 10. A JSON line of the backward shapes, one of the serving shapes (phase
      6's kernel rows and runs), one of phase 7, one of phase 8 (the
-     fleet), a JSON line of the kernels, the script's wall time, the card
-     line, and the final JSON line.
+     fleet), one of phase 9 (``lm``), a JSON line of the kernels, the
+     script's wall time, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -398,6 +438,52 @@ FLEET_FORMS = ("auto", "ell")
 FLEET_PROCESS_WORKERS = 2
 FLEET_FAILOVER_S = 2.0  # submits this long after the kill are "during"
 FLEET_TIMEOUT_S = 300.0
+# phase 9: gemma3-4b (CONFIG, full width and depth) served through the
+# port's LM entry points.  (batch, prompt, decode steps) of the f32 runs
+# held to the teacher-forced forward (9a) and to dense_reference (9b); the
+# full-width cut held to the port's CPU path (layers, batch, prompt, decode
+# steps); (batch, prompt, new tokens) of the bf16 ServingEngine runs
+LM_F32_RUN = (2, 4096, 16)
+LM_CPU_CUT = (7, 1, 128, 4)
+LM_BF16_RUNS = ((4, 4096, 32), (8, 256, 32))
+# 9b: whole 64 x 64 storage tiles pruned, so the MLP products plan ell (N1)
+LM_PRUNE = dict(sparsity=0.9, prune_block=(64, 64), block=(64, 64))
+LM_N1_WIDTHS = (4, 8, 2048, 16384)
+# f32 logits of the full model: |got - want| <= LM_RTOL * max|want|.  The
+# same f32 sums over 34 layers taken in other orders (the banded gather,
+# the flash loop and the ring cache against one masked softmax; N1 against
+# cuBLAS), carried through the depth: 7.1e-6 of max|want| measured on an
+# H100, so over 10x headroom
+LM_RTOL = 1e-4
+# the 9a gate's power: faults planted at run time in models/layers.py's
+# source, each one key or one position off in the local layers, must leave
+# it; a sound reroute of the local prefill must stay in it.  (what, [(text,
+# replacement)], a fault?)
+_LM_BANDED = ("return attn_lib.local_block_attention(q, k, v, window=cfg."
+              "window,\n                                              "
+              "block=lblk)")
+LM_PLANTED = (
+    ("decode window one key short",
+     [("valid &= kpos > pos - cfg.window",
+       "valid &= kpos > pos - cfg.window + 1")], True),
+    ("decode ring slot one ahead",
+     [("slot = pos % size if kind", "slot = (pos + 1) % size if kind")],
+     True),
+    ("decode RoPE position one ahead",
+     [("positions = torch.full((b, 1), pos, dtype",
+       "positions = torch.full((b, 1), pos + 1, dtype")], True),
+    ("prefill local window one key short (masked softmax)",
+     [(_LM_BANDED, "return attn_lib.mha_reference(q, k, v, causal=causal, "
+                   "window=cfg.window - 1)")], True),
+    ("prefill local through the masked softmax (sound)",
+     [(_LM_BANDED, "return attn_lib.mha_reference(q, k, v, causal=causal, "
+                   "window=cfg.window)")], False),
+)
+# 9c: smoke prompts of 32 positions (vision prefix included), 8 decode
+# steps; rtol of max|want| (f32 sums over 2 to 7 narrow layers)
+LM_SMOKE_PROMPT = 32
+LM_SMOKE_DECODE = 8
+LM_SMOKE_RTOL = 1e-4
 
 
 def log(*args):
@@ -416,7 +502,11 @@ class Port:
     """The port's modules, imported once ``src/`` is on the path."""
 
     def __init__(self):
+        from repro_torch import configs as lm_configs
         from repro_torch.configs import gemma3_4b, paper_gnn
+        from repro_torch.models import layers as lm_layers
+        from repro_torch.models import pruning
+        from repro_torch.models import transformer as lm
         from repro_torch.core import attention as lm_attention
         from repro_torch.core.formats import (SELL_HEAVY_ROW_NNZ, BlockELL,
                                               SellCS)
@@ -448,7 +538,8 @@ class Port:
         self.GNNConfig = paper_gnn.GNNConfig
         self.batch, self.runtime, self.fleet = batch, runtime, fleet
         self.lm_cfg = gemma3_4b.CONFIG
-        self.lm_attention = lm_attention
+        self.lm, self.pruning, self.lm_configs = lm, pruning, lm_configs
+        self.lm_attention, self.lm_layers = lm_attention, lm_layers
         self.bsattn, self.bsattn_kernel = bsattn_ops, bsattn_kernel
         self.dense_mask_from_ell = bsattn_ref.dense_mask_from_ell
         self.random_graph = random_graph
@@ -1085,6 +1176,15 @@ def library_csr(torch, graph):
 
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def n1_nbytes(ell, ops, out_bytes) -> int:
+    """The bytes N1 must move: its column lists, H and Y once each, and
+    only the real blocks of ``ell`` (slots past ``nblocks`` are in no
+    list and are never read)."""
+    col_ptr, col_slots, _, h = ops
+    return nbytes_of(col_ptr, col_slots, h) + out_bytes \
+        + int(ell.nblocks.sum()) * ell.bm * ell.bn * ell.blocks.element_size()
 
 
 def kernel_rows(torch, port, graph, path):
@@ -2043,7 +2143,7 @@ def transposed_rows(torch, port, graph, want_path, gen, widths=None):
                 torch, f"N1 at D={d} (Aᵀ ḡ on A's Block-ELL blocks)",
                 lambda: port.wrappers["N1"](*ops),
                 lambda: port.ref.spmm_blockell_t_ref(*ops), library,
-                nbytes_of(*ops) + out_bytes, 2 * nnz * d,
+                n1_nbytes(ell, ops, out_bytes), 2 * nnz * d,
                 f"nbc={ops[0].shape[0] - 1} list entries "
                 f"{ops[1].shape[0]} blocks {ell.bm}x{ell.bn} D={d}; {nnz} "
                 "nonzeros; library: torch.sparse.mm on a CSR of Aᵀ",
@@ -3764,6 +3864,516 @@ def fleet_phase(torch, np, port):
     return {"n_requests": len(reqs), "runs": runs, "wall_s": wall}, k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the LM models and ServingEngine (gemma3-4b at full width, dense
+# and with its MLP weights pruned onto N1; every smoke arch)
+# ---------------------------------------------------------------------------
+
+
+def lm_tokens(np, rng, vocab, b, s):
+    return rng.integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def hold_logits(torch, what, got, want, rtol=LM_RTOL):
+    """|got - want| <= rtol * max|want| over a step's logits; returns the
+    error."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float().to(got.device)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if got.shape != want.shape or not err <= rtol * scale:
+        raise AssertionError(f"{what}: max_abs_err {err:.3e} above "
+                             f"{rtol:g} x max|want| {scale:.3e}")
+    return err
+
+
+def head_logits(port, params, cfg, hidden, positions):
+    """The LM head at ``positions`` of ``hidden`` only ([B, P, V] f32)."""
+    return hidden[:, positions].float() @ port.lm._lm_head(params,
+                                                           cfg).float()
+
+
+def lm_serve(torch, port, params, cfg, toks, s, n_dec, side=None):
+    """``prefill`` of ``toks[:, :s]`` and ``n_dec`` ``decode_step``s fed
+    the next tokens of ``toks`` (teacher forcing).  Returns each step's
+    logits (prefill's first) and each decode step's launch counts."""
+    side = side or {}
+    logits, cache = port.lm.prefill(params, cfg, toks[:, :s],
+                                    cfg.vision_tokens + s + n_dec, **side)
+    out, per_step = [logits], []
+    for t in range(n_dec):
+        before = port.counts()
+        logits, cache = port.lm.decode_step(params, cfg,
+                                            toks[:, s + t:s + t + 1], cache)
+        torch.cuda.synchronize()
+        after = port.counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        out.append(logits)
+    return out, per_step
+
+
+def teacher_forced(torch, port, params, cfg, toks, s, n_dec, side=None):
+    """``forward_hidden`` over prompt plus fed tokens, the head applied at
+    the ``n_dec + 1`` positions each serving step predicts from."""
+    side = side or {}
+    with torch.no_grad():
+        hidden, _, _ = port.lm.forward_hidden(
+            params, cfg, toks[:, :s + n_dec], mode="train", remat=False,
+            **side)
+    first = cfg.vision_tokens + s - 1
+    logits = head_logits(port, params, cfg, hidden,
+                         list(range(first, first + n_dec + 1)))
+    return [logits[:, i] for i in range(n_dec + 1)]
+
+
+def planted_faults(torch, port, params, cfg, toks, s, n_dec, want):
+    """Each of ``LM_PLANTED`` patched into ``models/layers.py``'s source,
+    re-executed in the module's namespace and restored after: the served
+    logits must leave the ``LM_RTOL`` gate where a fault is planted and
+    stay in it on the sound reroute.  Returns each one's max_abs_err over
+    max|want|."""
+    mod = port.lm_layers
+    src, saved = Path(mod.__file__).read_text(), dict(mod.__dict__)
+    scale = max(float(w.abs().max()) for w in want)
+    out = {}
+    for what, subs, fault in LM_PLANTED:
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise AssertionError(f"9a planted '{what}': its text is not "
+                                     f"once in {mod.__file__}; update "
+                                     "LM_PLANTED")
+            text = text.replace(old, new)
+        try:
+            exec(compile(text, mod.__file__, "exec"), mod.__dict__)
+            got, _ = lm_serve(torch, port, params, cfg, toks, s, n_dec)
+        finally:
+            mod.__dict__.clear()
+            mod.__dict__.update(saved)
+        rel = max(float((g - w.to(g.device)).abs().max())
+                  for g, w in zip(got, want)) / scale
+        log(f"9a planted {what}: max_abs_err {rel:.3e} x max|want| "
+            f"({'a fault: must exceed' if fault else 'sound: must stay in'} "
+            f"{LM_RTOL:g})")
+        if (rel > LM_RTOL) != fault:
+            raise AssertionError(f"9a planted {what}: {rel:.3e} x max|want| "
+                                 f"against the gate {LM_RTOL:g}")
+        out[what] = rel
+        del got
+    return out
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def lm_generate_run(torch, np, port, params, cfg, b, s, n_new, label, rng):
+    """``ServingEngine.generate`` of ``n_new`` tokens after B prompts of S
+    tokens (counted; wall, tokens/s and peak memory), then the same
+    entry points it runs timed one by one (prefill, the median decode
+    step with a sync, one decode step profiled) and the greedy agreement
+    with the teacher-forced argmax in the same dtype (printed, not
+    gated)."""
+    dev = torch.device(DEVICE)
+    eng_mod = port.engine
+    prompts = lm_tokens(np, rng, cfg.vocab_size, b, s)
+    eng = eng_mod.ServingEngine(params, cfg,
+                                eng_mod.ServeConfig(max_len=s + n_new + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = port.counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = port.counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    peak = peak_gib(torch)
+    run_p, lm = eng._run_params, port.lm
+    ptoks = torch.as_tensor(prompts, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = lm.prefill(run_p, cfg, ptoks, s + n_new + 1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    steps = []
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    for _ in range(n_new - 1):
+        t1 = time.perf_counter()
+        logits, cache = lm.decode_step(run_p, cfg, tok, cache)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t1) * 1e3)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        lm.decode_step(run_p, cfg, tok, cache)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    busy = log_device_time(prof, prof_wall, f"{label}: one decode step")
+    del cache, logits
+    full = torch.as_tensor(np.concatenate([prompts, toks[:, :-1]], 1),
+                           device=dev)
+    with torch.no_grad():
+        hidden, _, _ = lm.forward_hidden(run_p, cfg, full, mode="train",
+                                         remat=False)
+    want = head_logits(port, run_p, cfg, hidden,
+                       list(range(s - 1, s + n_new - 1))).argmax(-1)
+    agree = float((want.cpu().numpy() == toks).mean())
+    del hidden, want, eng
+    row = {"batch": b, "prompt": s, "new_tokens": n_new,
+           "generate_s": wall, "tokens_per_s": b * n_new / wall,
+           "prefill_ms": prefill_ms,
+           "decode_ms_median": statistics.median(steps),
+           "decode_ms_min": min(steps), "peak_gib": peak,
+           "decode_busy_pct": None if busy is None
+           else 100 * busy / prof_wall,
+           "greedy_agreement": agree, "launches": launches}
+    log(f"{label}: B={b} S={s} n_new={n_new}: generate {wall:.3f} s, "
+        f"{row['tokens_per_s']:.1f} tokens/s; prefill {prefill_ms:.2f} ms; "
+        f"decode median {row['decode_ms_median']:.3f} ms a step (min "
+        f"{row['decode_ms_min']:.3f}); peak {peak:.2f} GiB; greedy tokens "
+        f"equal to the teacher-forced argmax: {100 * agree:.1f} %; "
+        f"launches {launches}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def cut_layers(port, params, cfg, n_layers):
+    """The first ``n_layers`` layers of a stacked params tree, fewer than
+    its periods hold (whole periods, then a remainder from the next
+    period's blocks), views; and its config."""
+    tm = port.lm.tree_map
+    n_per, rem = divmod(n_layers, cfg.period)
+    out = {k: v for k, v in params.items()
+           if k not in ("periods", "remainder")}
+    out["periods"] = tm(lambda a: a[:n_per], params["periods"])
+    out["remainder"] = tuple(tm(lambda a: a[n_per], params["periods"][j])
+                             for j in range(rem))
+    return out, dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def lm_dense_phase(torch, np, port, params, rng):
+    """9a: gemma3-4b dense at full width and depth."""
+    dev = torch.device(DEVICE)
+    cfg = port.lm_cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {}
+    b, s, n_dec = LM_F32_RUN
+    toks = torch.as_tensor(lm_tokens(np, rng, cfg.vocab_size, b, s + n_dec),
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, _ = lm_serve(torch, port, params, cfg32, toks, s, n_dec)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_peak = peak_gib(torch)
+    torch.cuda.reset_peak_memory_stats()
+    want = teacher_forced(torch, port, params, cfg32, toks, s, n_dec)
+    errs = [hold_logits(torch, f"9a f32 step {t}", g, w)
+            for t, (g, w) in enumerate(zip(got, want))]
+    scale = max(float(w.abs().max()) for w in want)
+    log(f"9a gemma3-4b f32 (TF32 off), B={b} S={s} + {n_dec} decode steps: "
+        f"{serve_s:.2f} s, peak {serve_peak:.2f} GiB; logits held to the "
+        f"teacher-forced forward at S={s + n_dec} (mha_reference route; "
+        f"peak {peak_gib(torch):.2f} GiB): max_abs_err {max(errs):.3e}, "
+        f"max|want| {scale:.3e} (tol {LM_RTOL:g} x max|want|)")
+    out["f32"] = {"batch": b, "prompt": s, "decode_steps": n_dec,
+                  "serve_s": serve_s, "peak_gib": serve_peak,
+                  "max_abs_err": max(errs), "max_want": scale}
+    del got
+    out["f32"]["planted_rel_err"] = planted_faults(
+        torch, port, params, cfg32, toks, s, n_dec, want)
+    del want, toks
+    torch.cuda.empty_cache()
+
+    layers, b, s, n_dec = LM_CPU_CUT
+    p_cut, cfg_cut = cut_layers(port, params, cfg32, layers)
+    p_cpu = port.lm.tree_map(lambda a: a.cpu(), p_cut)
+    toks = torch.as_tensor(lm_tokens(np, rng, cfg.vocab_size, b, s + n_dec))
+    t0 = time.perf_counter()
+    got, _ = lm_serve(torch, port, p_cut, cfg_cut, toks.to(dev), s, n_dec)
+    want, _ = lm_serve(torch, port, p_cpu, cfg_cut, toks, s, n_dec)
+    errs = [hold_logits(torch, f"9a {layers}-layer cut step {t}", g, w)
+            for t, (g, w) in enumerate(zip(got, want))]
+    log(f"9a {layers}-layer cut at full width, B={b} S={s} + {n_dec} decode "
+        f"steps, card vs the port's CPU path on the same weights: max_abs_err "
+        f"{max(errs):.3e} ({time.perf_counter() - t0:.1f} s)")
+    out["cut_vs_cpu"] = {"layers": layers, "batch": b, "prompt": s,
+                         "decode_steps": n_dec, "max_abs_err": max(errs)}
+    del p_cpu, p_cut, got, want
+
+    out["bf16"] = {}
+    for b, s, n_new in LM_BF16_RUNS:
+        label = f"9a dense bf16 B={b} S={s}"
+        out["bf16"][f"B{b}_S{s}"] = lm_generate_run(
+            torch, np, port, params, cfg, b, s, n_new, label, rng)
+    return out
+
+
+def sparse_weights(port, sp):
+    """Every pruned MLP weight (``SparseMatrix``) of ``sp``."""
+    is_sparse = port.pruning._is_sparse
+    return [w for w in port.lm.tree_leaves(sp, is_leaf=is_sparse)
+            if is_sparse(w)]
+
+
+def weight_plan(port, w, d):
+    """The plan of ``x @ W`` (``Wᵀ xᵀ``) at width ``d``."""
+    wt = w.T
+    return port.dispatcher.plan_spmm(wt.stats, d,
+                                     candidates=port.ops.available_paths(wt))
+
+
+def n1_lm_rows(torch, port, sp):
+    """N1 at the LM's widths on layer 0's ``wi`` and ``wo`` (``Wᵀ H`` on W's
+    Block-ELL blocks): held to its plain version, timed beside its bound,
+    ``torch.sparse.mm`` on a CSR of Wᵀ and ``torch.matmul`` on the dense
+    weight (the route a dense plan runs), f32."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tr, rows = port.transposed, {}
+    blk = sp["periods"][0][0]["mlp"]
+    for key in ("wi", "wo"):
+        w = blk[key]
+        ell = w.form("ell")
+        r, c, v = w.form("csr")
+        m, n = w.shape
+        lib_t = torch.sparse_coo_tensor(
+            torch.stack([c.long(), r.long()]), v, (n, m)
+        ).coalesce().to_sparse_csr()
+        dense_t = w.to_dense()
+        dense_t = torch.as_tensor(dense_t.T.copy(), device=dev)
+        nnz = w.stats.nnz
+        for d in LM_N1_WIDTHS:
+            h = torch.randn(ell.shape[0], d, device=dev, generator=gen)
+            ops = (*tr.blockell_columns(ell), ell.blocks, h)
+            row = measure(
+                torch, f"N1 LM {key}ᵀ at D={d}",
+                lambda: port.wrappers["N1"](*ops),
+                lambda: port.ref.spmm_blockell_t_ref(*ops),
+                lambda: torch.sparse.mm(lib_t, h[:m]),
+                n1_nbytes(ell, ops, ell.shape[1] * d * 4), 2 * nnz * d,
+                f"W {m}x{n}, blocks {ell.bm}x{ell.bn}, width "
+                f"{ell.indices.shape[1]}, {int(ell.nblocks.sum())} real "
+                f"blocks, {nnz} nonzeros, D={d}; library: "
+                "torch.sparse.mm on a CSR of Wᵀ",
+                close=lambda *a: transposed_sums_close(torch, port, *a, ops))
+            row["dense_ms"] = time_ms(torch, lambda: dense_t @ h[:m])
+            log(f"  N1 LM {key}ᵀ D={d}: dense torch.matmul (TF32 off) "
+                f"{row['dense_ms']:.4f} ms, {row['dense_ms'] / row['ms']:.2f}"
+                f"x N1's time; {row['ms'] / row['bound_ms']:.2f}x its bound")
+            rows[f"N1 LM {key} D={d}"] = row
+            del h, ops
+        del lib_t, dense_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def default_prune_finding(torch, port, w):
+    """One MLP weight pruned at ``sparsify_lm``'s defaults (8 x 8 pruning
+    tiles on 64 x 64 storage): its stats and plans (printed; dense
+    expected, nearly every storage tile keeps a pruning tile)."""
+    t0 = time.perf_counter()
+    m = port.pruning._to_sparse(w, sparsity=0.9, prune_block=(8, 8),
+                                formats=("ell", "csr"), format="auto",
+                                block=(64, 64))
+    st = m.stats
+    plans = {d: weight_plan(port, m, d) for d in (8, 16384)}
+    log(f"9b default pruning (8x8 tiles, 64x64 storage, sparsity 0.9) of one "
+        f"wi {tuple(w.shape)}: occupancy {st.occupancy:.4f}, ell width "
+        f"{st.ell_width}, nnz {st.nnz}; plans "
+        + "; ".join(f"D={d} {p.path} ({p.reason})" for d, p in plans.items())
+        + f" ({time.perf_counter() - t0:.2f} s)")
+    return {"occupancy": st.occupancy, "ell_width": st.ell_width,
+            "plans": {d: p.path for d, p in plans.items()}}
+
+
+def lm_pruned_phase(torch, np, port, sp, rng):
+    """9b after sparsify: plans, N1 per decode step, logits held to
+    ``dense_reference``, bf16 generation, N1's rows."""
+    dev = torch.device(DEVICE)
+    cfg = port.lm_cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"report": port.pruning.weight_sparsity_report(sp)}
+    weights = sparse_weights(port, sp)
+    b, s, n_dec = LM_F32_RUN
+    widths = sorted({b, b * s} | {bb for bb, _, _ in LM_BF16_RUNS}
+                    | {bb * ss for bb, ss, _ in LM_BF16_RUNS})
+    off = [(i, d, weight_plan(port, w, d).path)
+           for i, w in enumerate(weights) for d in widths
+           if weight_plan(port, w, d).path != "ell"]
+    if off:
+        raise AssertionError("9b: MLP weights (index, D, plan) not planned "
+                             f"ell: {off[:6]}")
+    st = weights[0].stats
+    log(f"9b: all {len(weights)} MLP weights plan ell at D = {widths} "
+        f"(the first: {weights[0].shape}, occupancy {st.occupancy:.4f}, ell "
+        f"width {st.ell_width}; {weight_plan(port, weights[0], 2).reason})")
+    out["plan_widths"] = widths
+
+    toks = torch.as_tensor(lm_tokens(np, rng, cfg.vocab_size, b, s + n_dec),
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, per_step = lm_serve(torch, port, sp, cfg32, toks, s, n_dec)
+    serve_s = time.perf_counter() - t0
+    serve_peak = peak_gib(torch)
+    want_n1 = 3 * cfg.n_layers
+    for t, c in enumerate(per_step):
+        if nonzero(c) != {"N1": want_n1}:
+            raise AssertionError(f"9b decode step {t}: launches "
+                                 f"{nonzero(c)}, want N1 x{want_n1}")
+    dense = port.pruning.dense_reference(sp)
+    want, _ = lm_serve(torch, port, dense, cfg32, toks, s, n_dec)
+    errs = [hold_logits(torch, f"9b f32 step {t}", g, w)
+            for t, (g, w) in enumerate(zip(got, want))]
+    scale = max(float(w.abs().max()) for w in want)
+    log(f"9b pruned f32, B={b} S={s} + {n_dec} decode steps: {serve_s:.2f} "
+        f"s, peak {serve_peak:.2f} GiB; N1 x{want_n1} a decode step; logits "
+        f"held to dense_reference through the same entry points: max_abs_err "
+        f"{max(errs):.3e}, max|want| {scale:.3e}")
+    out["f32"] = {"batch": b, "prompt": s, "decode_steps": n_dec,
+                  "serve_s": serve_s, "peak_gib": serve_peak,
+                  "n1_per_decode_step": want_n1, "max_abs_err": max(errs),
+                  "max_want": scale}
+    del dense, got, want, toks
+    torch.cuda.empty_cache()
+    out["bf16"] = {}
+    for b, s, n_new in LM_BF16_RUNS:
+        label = f"9b pruned bf16 B={b} S={s}"
+        out["bf16"][f"B{b}_S{s}"] = lm_generate_run(
+            torch, np, port, sp, cfg, b, s, n_new, label, rng)
+    before = port.counts()["N1"]
+    out["n1_rows"] = n1_lm_rows(torch, port, sp)
+    out["n1_timing_launches"] = port.counts()["N1"] - before
+    return out
+
+
+def lm_smoke_phase(torch, np, port, rng):
+    """9c: every LM arch's ``SMOKE_CONFIG`` on the card in f32, held to the
+    teacher-forced forward and to the port's CPU run of the same weights;
+    ``lm_loss`` against the CPU's; MoE at capacity_factor = n_experts (no
+    drops; teacher-forced too) and at its own capacity (drops: the CPU
+    only)."""
+    dev = torch.device(DEVICE)
+    cpu = torch.device("cpu")
+    lm, out = port.lm, {}
+    for arch in port.lm_configs.ARCHS:
+        if arch == "paper-gnn":
+            continue
+        base = dataclasses.replace(port.lm_configs.get_smoke_config(arch),
+                                   dtype="float32")
+        variants = [("", base)]
+        if base.n_experts:
+            variants = [("no drops", dataclasses.replace(
+                base, capacity_factor=float(base.n_experts))),
+                ("own capacity", base)]
+        for tag, cfg in variants:
+            p_cpu = lm.init_lm(cfg, seed=SEED, device="cpu")
+            p_dev = lm.tree_map(lambda a: a.to(dev), p_cpu)
+            s = LM_SMOKE_PROMPT - cfg.vision_tokens
+            toks = torch.as_tensor(lm_tokens(np, rng, cfg.vocab_size, 2,
+                                             s + LM_SMOKE_DECODE + 1))
+            side = {}
+            if cfg.vision_tokens:
+                side["vision_embeds"] = torch.as_tensor(rng.normal(
+                    size=(2, cfg.vision_tokens, cfg.d_model)).astype(
+                        np.float32))
+            if cfg.encoder_layers:
+                side["enc_embeds"] = torch.as_tensor(rng.normal(
+                    size=(2, cfg.encoder_seq, cfg.d_model)).astype(
+                        np.float32))
+            on = {k: v.to(dev) for k, v in side.items()}
+            got, _ = lm_serve(torch, port, p_dev, cfg, toks.to(dev), s,
+                              LM_SMOKE_DECODE, on)
+            want, _ = lm_serve(torch, port, p_cpu, cfg, toks, s,
+                               LM_SMOKE_DECODE, side)
+            e_cpu = max(hold_logits(torch, f"9c {arch} {tag} step {t} vs CPU",
+                                    g, w, LM_SMOKE_RTOL)
+                        for t, (g, w) in enumerate(zip(got, want)))
+            e_tf = None
+            if tag != "own capacity":
+                tf = teacher_forced(torch, port, p_dev, cfg, toks.to(dev), s,
+                                    LM_SMOKE_DECODE, on)
+                e_tf = max(hold_logits(
+                    torch, f"9c {arch} {tag} step {t} vs teacher-forced", g,
+                    w, LM_SMOKE_RTOL) for t, (g, w) in enumerate(zip(got, tf)))
+            batch = {"tokens": toks[:, :s], "targets": toks[:, 1:s + 1],
+                     "mask": torch.ones(2, s)}
+            batch.update(side)
+            with torch.no_grad():
+                loss_dev = float(lm.lm_loss(
+                    p_dev, cfg, {k: v.to(dev) for k, v in batch.items()}))
+                loss_cpu = float(lm.lm_loss(p_cpu, cfg, batch))
+            if not (math.isfinite(loss_dev)
+                    and abs(loss_dev - loss_cpu) <= 1e-4 * abs(loss_cpu)):
+                raise AssertionError(f"9c {arch} {tag}: lm_loss {loss_dev} on "
+                                     f"the card, {loss_cpu} on the CPU")
+            name = f"{arch} {tag}".strip()
+            out[name] = {"vs_cpu": e_cpu, "vs_teacher_forced": e_tf,
+                         "loss": loss_dev, "loss_cpu": loss_cpu}
+            log(f"9c {name}: prefill + {LM_SMOKE_DECODE} decode steps, "
+                f"max_abs_err vs CPU {e_cpu:.3e}, vs teacher-forced "
+                + ("not held (capacity drops differ)" if e_tf is None
+                   else f"{e_tf:.3e}")
+                + f"; lm_loss {loss_dev:.6f} (CPU {loss_cpu:.6f})")
+    return out
+
+
+def lm_phase(torch, np, port):
+    """Phase 9: 9a, 9b and 9c; returns the ``lm`` summary and N1's main-path
+    launches (the serving runs', not the timing rows')."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = port.lm.init_lm(port.lm_cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in port.lm.tree_leaves(params))
+    log(f"phase 9: gemma3-4b CONFIG, {port.lm_cfg.n_layers} layers, "
+        f"{n_params} parameters (param_count {port.lm_cfg.param_count()}), "
+        f"init_lm on the card in {time.perf_counter() - t1:.2f} s, "
+        f"{peak_gib(torch):.2f} GiB")
+    if n_params != port.lm_cfg.param_count():
+        raise AssertionError("init_lm's count differs from param_count")
+    summary = {"params": n_params}
+    before = port.counts()
+    summary["dense"] = lm_dense_phase(torch, np, port, params, rng)
+    summary["dense"]["wall_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    summary["default_prune"] = default_prune_finding(
+        torch, port, params["periods"][0]["mlp"]["wi"][0])
+    t2 = time.perf_counter()
+    sp = port.pruning.sparsify_lm(params, port.lm_cfg, **LM_PRUNE)
+    torch.cuda.synchronize()
+    sparsify_s = time.perf_counter() - t2
+    del params  # the dense MLP weights go; sp keeps views of the rest
+    torch.cuda.empty_cache()
+    log(f"9b sparsify_lm({LM_PRUNE}) over {port.lm_cfg.n_layers} layers: "
+        f"{sparsify_s:.1f} s; weight_sparsity_report "
+        f"{port.pruning.weight_sparsity_report(sp)}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    summary["pruned"] = lm_pruned_phase(torch, np, port, sp, rng)
+    summary["pruned"].update(sparsify_s=sparsify_s,
+                             wall_s=time.perf_counter() - t1)
+    del sp
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    summary["smoke"] = lm_smoke_phase(torch, np, port, rng)
+    after = port.counts()
+    summary["smoke_wall_s"] = time.perf_counter() - t1
+    summary["wall_s"] = time.perf_counter() - t0
+    n1 = after["N1"] - before["N1"] \
+        - summary["pruned"].pop("n1_timing_launches")
+    log(f"phase 9: wall {summary['wall_s']:.1f} s; N1 launches on the main "
+        f"path {n1}")
+    return summary, n1
+
+
 def main() -> int:
     import torch
 
@@ -3858,6 +4468,8 @@ def main() -> int:
         "b": dispatch_b.pop("plan_inputs")})
     fleet, fleet_k1 = fleet_phase(torch, np, port)
     rows["K1"]["launches"] += fleet_k1
+    lm_summary, lm_n1 = lm_phase(torch, np, port)
+    rows["N1"]["launches"] += lm_n1
 
     kernels = []
     for name in sorted(KERNELS):
@@ -3878,6 +4490,7 @@ def main() -> int:
                                    "calibrate": calibration}},
                      default=str))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"lm": lm_summary}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phases 1 "
         f"and 2, the kernel build included, {t_main:.1f} s of it)")

@@ -4,7 +4,8 @@ vocab=262144 — 5:1 local:global layer pattern, 128k context.
 
 The local layers are the paper's technique in production: banded
 block-sparse attention (``core.attention.local_block_attention``, and
-the same band through ``kernels.bsattn``).
+the same band through ``kernels.bsattn``).  Sub-quadratic in
+depth-averaged cost => long_500k cell RUNS.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -20,6 +21,10 @@ CONFIG = ModelConfig(
     vocab_size=262144,
     layer_pattern=("local", "local", "local", "local", "local", "attn"),
     window=1024,
+    act="gelu",
+    tie_embeddings=True,
+    rope_theta=1000000.0,
+    long_context_ok=True,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -35,4 +40,7 @@ SMOKE_CONFIG = ModelConfig(
     layer_pattern=("local", "local", "local", "local", "local", "attn"),
     window=64,
     attn_block=32,
+    act="gelu",
+    tie_embeddings=True,
+    long_context_ok=True,
 )

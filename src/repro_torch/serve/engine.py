@@ -1,5 +1,14 @@
-"""Node-classification serving over a fixed graph (the port of
-``GNNServingEngine`` from ``repro.serve.engine``).
+"""Serving engines (the port of ``repro.serve.engine``).
+
+``ServingEngine`` drives the LM's ``prefill`` / ``decode_step`` entry
+points (``repro_torch.models.transformer``) for a batch of prompts with
+greedy or temperature decoding, eagerly on the params' device; it casts
+the dense weights to the compute dtype once, at construction
+(``transformer.cast_weights``: the same bits as casting at each use).
+``make_prefill_step`` / ``make_serve_step`` are the reference's entry
+closures.
+
+``GNNServingEngine`` serves node classification over a fixed graph.
 
 The aggregation path is chosen once per graph, at construction, by the
 dispatch layer from the graph's sparsity stats; every request then runs
@@ -32,10 +41,12 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import device_scope, resolve_device
 from repro_torch.dispatch.dispatcher import plan_fused_attention, plan_spmm
 from repro_torch.models.gnn import (GRAPH_PATHS, Graph, gat_forward,
                                     gcn_forward, graph_candidates)
+from repro_torch.models.transformer import cast_weights, decode_step, prefill
 from repro_torch.resilience import chaos
 from repro_torch.resilience.errors import (FATAL, POISON, TRANSIENT,
                                            DeadlineExceededError,
@@ -44,6 +55,63 @@ from repro_torch.resilience.errors import (FATAL, POISON, TRANSIENT,
 from repro_torch.resilience.retry import RetryBudget, RetryPolicy
 from repro_torch.resilience.supervisor import WorkerSupervisor
 from repro_torch.sparse.plan import plan_cache_stats
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 2048
+    temperature: float = 0.0  # 0 => greedy
+    seed: int = 0
+
+
+class ServingEngine:
+    """Batched LM generation: ``prefill`` → ``_sample`` → ``decode_step``.
+
+    Greedy sampling is ``argmax`` (the first maximum, as
+    ``jnp.argmax``).  A temperature above 0 samples from
+    ``softmax(logits / temperature)`` with ``torch.multinomial`` on an
+    engine-owned ``torch.Generator`` seeded with ``scfg.seed``: the same
+    tokens for the same seed, but not ``jax.random.categorical``'s draws.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig):
+        self.params = params
+        self.cfg = cfg
+        self.scfg = scfg
+        self._run_params = cast_weights(params, cfg)
+        self.device = params["embed"].device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(scfg.seed)
+
+    def _sample(self, logits):
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(
+            torch.int32)
+
+    def generate(self, prompts: np.ndarray, n_new: int, *,
+                 vision_embeds=None, enc_embeds=None) -> np.ndarray:
+        """prompts: [B, S_prompt] int32 -> [B, n_new] generated tokens (a
+        host int32 array)."""
+        kw = {}
+        if vision_embeds is not None:
+            kw["vision_embeds"] = torch.as_tensor(vision_embeds,
+                                                  device=self.device)
+        if enc_embeds is not None:
+            kw["enc_embeds"] = torch.as_tensor(enc_embeds, device=self.device)
+        toks = torch.as_tensor(np.asarray(prompts), device=self.device)
+        logits, cache = prefill(self._run_params, self.cfg, toks,
+                                self.scfg.max_len, **kw)
+        out = []
+        tok = self._sample(logits)[:, None]
+        out.append(tok)
+        for _ in range(n_new - 1):
+            logits, cache = decode_step(self._run_params, self.cfg, tok,
+                                        cache)
+            tok = self._sample(logits)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -585,3 +653,28 @@ class BatchServingEngine:
                 "worker_restarts": self._sup.restarts,
             },
         }, {"latency_ms_p50": "p50_ms", "latency_ms_p99": "p99_ms"})
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int):
+    """The prefill entry (the prefill_* cells).  Takes the batch as a dict
+    so modality side-inputs can never be positionally confused."""
+
+    def prefill_step(params, batch):
+        kw = {}
+        if cfg.vision_tokens and "vision_embeds" in batch:
+            kw["vision_embeds"] = batch["vision_embeds"]
+        if cfg.encoder_layers and "enc_embeds" in batch:
+            kw["enc_embeds"] = batch["enc_embeds"]
+        logits, cache = prefill(params, cfg, batch["tokens"], max_len, **kw)
+        return logits, cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """The single-token decode entry (the decode_* cells)."""
+
+    def serve_step(params, token, cache):
+        return decode_step(params, cfg, token, cache)
+
+    return serve_step

@@ -410,25 +410,27 @@ class SparseMatrix:
         """
         name = self.format
         form = self._forms[name]
-        m, n = self.shape
-
-        def build():
-            if name == "csr":
-                return paths.densify_elements(form[0], form[1], form[2],
-                                              (m, n))
-            if name == "sell":
-                return paths.densify_sell(form)
-            full = paths.densify_ell(form) if name == "ell" \
-                else paths.densify_coo(form)
-            return full[:m, :n]
-
         return memoized(_DENSE_MEMO, values_of(name, form),
-                        _dense_key(name, form), build,
+                        _dense_key(name, form), self.dense_copy,
                         keep=lambda out: not out.requires_grad)
 
+    def dense_copy(self) -> torch.Tensor:
+        """``densify``'s tensor built anew and not memoized: the caller
+        owns it, and it is freed when the caller drops it."""
+        name = self.format
+        form = self._forms[name]
+        m, n = self.shape
+        if name == "csr":
+            return paths.densify_elements(form[0], form[1], form[2], (m, n))
+        if name == "sell":
+            return paths.densify_sell(form)
+        full = paths.densify_ell(form) if name == "ell" \
+            else paths.densify_coo(form)
+        return full[:m, :n]
+
     def to_dense(self) -> np.ndarray:
-        """Host numpy densification (a copy: ``densify`` is shared)."""
-        return np.array(self.densify().cpu())
+        """Host numpy densification (a copy; nothing is memoized)."""
+        return np.array(self.dense_copy().cpu())
 
     def to(self, fmt: str):
         """Convert to another format: a single-form ``SparseMatrix``

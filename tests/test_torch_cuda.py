@@ -42,7 +42,11 @@ twice, equal per ``torch.equal``; a failing K1 launch under ``form="auto"``
 fails its requests and leaves the ell form in service.  The serving
 fleet: a 2-worker thread fleet at ``form="ell"`` on the card (K1 launched)
 against the f64 ``dense @ h``, and one spawned worker with its own CUDA
-context that serves a request and exits with code 0 on ``close()``.
+context that serves a request and exits with code 0 on ``close()``.  The
+LM models: every arch's smoke model in f32, prefill and decode on the
+card against the CPU (rtol = atol = 1e-4), and a gemma3 smoke model with
+its MLP weights pruned onto Block-ELL launching N1 three times a layer a
+decode step.
 
 These need an NVIDIA GPU and ``nvcc``; without them they skip.  Run them
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1725,3 +1729,76 @@ def test_spawned_worker_serves_on_card_and_closes(dev):
     (ws,) = fleet.sup.states()
     assert ws.restarts == 0 and not ws.handle.alive()
     assert ws.handle._proc.exitcode == 0
+
+
+# -- LM models (slice 15) ----------------------------------------------------
+
+
+def _lm_smoke(arch, device, seed=0):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = T.init_lm(cfg, seed=seed, device="cpu")
+    return cfg, T, params, T.tree_map(lambda a: a.to(device), params)
+
+
+LM_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+            "nemotron-4-15b", "granite-20b", "qwen1.5-110b", "gemma3-4b",
+            "mamba2-2.7b", "recurrentgemma-2b", "internvl2-26b",
+            "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """Each smoke arch in f32 (TF32 off): prefill and 6 decode steps on the
+    card against the same weights and tokens on the CPU (rtol = atol =
+    1e-4: f32 sums in another order over a few layers)."""
+    cfg, T, p_cpu, p_dev = _lm_smoke(arch, dev)
+    rng = np.random.default_rng(1)
+    n_text = 24 - cfg.vision_tokens
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n_text + 6))
+                            .astype(np.int32))
+    side = {}
+    if cfg.vision_tokens:
+        side["vision_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.encoder_layers:
+        side["enc_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    runs = []
+    for p, d in ((p_cpu, torch.device("cpu")), (p_dev, dev)):
+        kw = {k: v.to(d) for k, v in side.items()}
+        logits, cache = T.prefill(p, cfg, toks[:, :n_text].to(d), 32, **kw)
+        outs = [logits.cpu()]
+        for t in range(6):
+            logits, cache = T.decode_step(
+                p, cfg, toks[:, n_text + t:n_text + t + 1].to(d), cache)
+            outs.append(logits.cpu())
+        runs.append(outs)
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_pruned_lm_decode_launches_n1_three_times_a_layer(dev):
+    """gemma3 smoke with its MLP weights pruned onto 8 x 8 Block-ELL tiles:
+    every MLP product plans ell, so a decode step launches N1 three times a
+    layer; the logits equal the CPU's (rtol = atol = 1e-4)."""
+    from repro_torch.models import pruning as P
+
+    cfg, T, p_cpu, p_dev = _lm_smoke("gemma3-4b", dev)
+    kw = dict(sparsity=0.8, prune_block=(8, 8), block=(8, 8))
+    sp_cpu, sp_dev = P.sparsify_lm(p_cpu, cfg, **kw), \
+        P.sparsify_lm(p_dev, cfg, **kw)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    lc, cc = T.prefill(sp_cpu, cfg, toks[:, :16], 24)
+    ld, cd = T.prefill(sp_dev, cfg, toks[:, :16].to(dev), 24)
+    torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for t in range(16, 20):
+        spmm_blockell_t_kernel.launches = 0
+        ld, cd = T.decode_step(sp_dev, cfg, toks[:, t:t + 1].to(dev), cd)
+        torch.cuda.synchronize()
+        assert spmm_blockell_t_kernel.launches == 3 * cfg.n_layers
+        lc, cc = T.decode_step(sp_cpu, cfg, toks[:, t:t + 1], cc)
+        torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -13,9 +13,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the port's subpackages, each checked by importing it alone
-SUBPACKAGES = ("batch", "core", "corpus", "data", "dispatch", "ft",
-               "kernels", "models", "obs", "resilience", "serve",
+SUBPACKAGES = ("batch", "configs", "core", "corpus", "data", "dispatch",
+               "ft", "kernels", "models", "obs", "resilience", "serve",
                "serve.fleet", "serve.runtime", "sparse", "train")
+# modules checked the same way on their own
+MODULES = ("models.transformer", "models.pruning", "serve.engine")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -63,10 +65,28 @@ def test_subpackage_imports_alone(sub):
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("sub", ["dispatch", "serve.fleet", "sparse"])
+@pytest.mark.parametrize("mod", MODULES)
+def test_module_imports_alone(mod):
+    """The LM modules, each imported alone in a fresh interpreter, load
+    neither JAX nor ``repro``."""
+    assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/") + ".py")
+            ) in PORT_FILES
+    code = (f"import sys, repro_torch.{mod}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("sub", ["configs", "dispatch", "serve.fleet",
+                                 "sparse"])
 def test_public_surface_matches_reference(sub):
-    """``repro_torch.dispatch``, ``repro_torch.serve.fleet`` and
-    ``repro_torch.sparse`` export the reference's names (but the deprecated
+    """``repro_torch.configs``, ``repro_torch.dispatch``,
+    ``repro_torch.serve.fleet`` and ``repro_torch.sparse`` export the
+    reference's names (but the deprecated
     ``SparseOperand``, not ported yet), each bound, and import alone
     without JAX or ``repro``."""
     import importlib
