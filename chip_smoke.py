@@ -17,8 +17,10 @@ Phases, each of which must pass or the script exits non-zero:
      all-padding block-row, D = 16, 48, 128 and 130, in f32, bf16 and f16,
      launched twice for equal bits; N1 (the transposed SpMM, A's Block-ELL
      blocks read in place) at the same fills with an empty block column,
-     D = 2, 16, 128 and 130, f32, bf16 and f16, launched twice for equal
-     bits, and K2 over Aᵀ's row view (the sell path's transposed SpMM)
+     D = 1, 2, 4, 8, 16, 128, 130 and 2048, f32, bf16 and f16, down each
+     of its paths that takes the width (stream at D <= 8, tensor and
+     sparse at every D), launched twice for equal bits, the rule's launch
+     equal bit for bit to its path's, and K2 over Aᵀ's row view (the sell path's transposed SpMM)
      against the element route, launched twice for equal bits; K3/K4 at
      K = 2 and 48 (K3 with a weighted mask, with none and on bf16
      operands; K4 on its slot operands, held
@@ -28,8 +30,8 @@ Phases, each of which must pass or the script exits non-zero:
      view and its occupancy bits, equal bit for bit to K3 without a mask
      at every set bit and exactly 0 elsewhere, launched twice for equal
      bits; at the SpMV backward's widths K3 (weighted and without a mask)
-     and K4 at K = 1, N1 at D = 1 in f32 (the same fills, padding
-     block-row and empty block column) and K2 over Aᵀ's row view at D = 1,
+     and K4 at K = 1, N1 at D = 1 in f32 down every path (the same
+     fills, padding block-row and empty block column) and K2 over Aᵀ's row view at D = 1,
      each launched twice for equal bits; K7/K8 at dk = 2 and 48,
      D = 16 and 48, in f32 and bf16, with edge-less rows (exactly 0) and
      all three edge activations, each launched twice for equal bits (K8
@@ -140,7 +142,11 @@ Phases, each of which must pass or the script exits non-zero:
      SpMM (K1, K2) at D = 2 (GAT's dq) against ``torch.sparse.mm``, and
      the transposed SpMM at D = 128 (dH, dV) and D = 2 (dk), N1 on (a)
      and K2 over Aᵀ's row view on (b), beside its bound, ``torch.sparse.mm``
-     on a CSR of Aᵀ and the plain route it replaced.
+     on a CSR of Aᵀ and the plain route it replaced (N1's rows print the
+     path its rule takes, the bound of the function whatever its path:
+     its bytes against the nonzeros' products at the faster of FP32 and
+     3xTF32, with the path's own operations beside it, and the copies
+     around the kernel).
   6. Batched and continuous GNN serving and the DeltaGraph overlay, each
      run's launches counted between counts set to 0 and read, every
      output held to a dense f32 oracle, and failing if any
@@ -252,10 +258,17 @@ Phases, each of which must pass or the script exits non-zero:
             every width the runs use; the f32 run of 9a with launch counts
             read around each decode step (N1 x3 a layer, nothing else)
             and every step's logits held to ``dense_reference`` through
-            the same entry points; the bf16 runs of 9a; N1 at D = 4, 8,
-            2048 and 16384 on layer 0's ``wi`` and ``wo`` (``Wᵀ H``), held
-            to its plain version beside its bound, ``torch.sparse.mm`` on
-            a CSR of Wᵀ and ``torch.matmul`` on the dense weight;
+            the same entry points; the bf16 runs of 9a, the engine owning
+            the pruned tree (9a's dense runs keep the caller's f32 tree
+            beside the engine's: ``sparsify_lm`` prunes it next), each
+            run's device memory held and peak printed, and the pruned
+            runs' prefill, decode and peak against the dense ones; N1 at
+            D = 4, 8, 2048 and 16384 on layer 0's ``wi`` and ``wo``
+            (``Wᵀ H``), held to its plain version beside its path, the
+            function's bound, ``torch.sparse.mm`` on a CSR of Wᵀ,
+            ``torch.matmul`` on the dense weight and the copies the LM
+            makes around it for bf16 activations (xᵀ made contiguous,
+            promoted to f32);
        (9c) every LM arch's ``SMOKE_CONFIG`` in f32: prefill and 8 decode
             steps held to the port's CPU run of the same weights and to
             the teacher-forced forward, ``lm_loss`` to the CPU's; MoE at
@@ -277,6 +290,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -315,6 +329,9 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # K9 in bf16 vs its plain version
 # bf16) beyond the f32 sums' own order
 NARROW_TOL = dict(rtol=1e-2, atol=1e-3)
 BLOCKELL_FILLS = (0.0, 0.01, 0.1, 1.0)
+# N1's widths in phase 2: every path's (the stream path's D <= 8, the
+# tensor path's D-tile of 128 and a ragged second one, the LM's 2048)
+N1_RAGGED_WIDTHS = (1, 2, 4, 8, 16, 128, 130, 2048)
 # phase 4 outputs.  Every row, in both dtypes, against the plain version
 # and the f32 oracle: ||got_r - want_r|| <= ATTN_ROW_RTOL * ||want_r|| +
 # ATTN_ATOL, so a late row that averages thousands of small values is held
@@ -581,13 +598,18 @@ class Port:
 
 
 def ptxas_instances(log_text: str) -> dict:
-    """Kernel instance (its mangled name's template arguments) -> its
-    spill and register lines in an ``nvcc -Xptxas -v`` log."""
+    """Kernel instance (its mangled name from the kernel's own identifier
+    on, ``<name>_kernel<template arguments>``, whole: the instances of
+    every kernel of one source stay apart) -> its spill and register lines
+    in an ``nvcc -Xptxas -v`` log."""
     usage, inst = {}, None
     for line in log_text.splitlines():
         if "Function properties for" in line:
             inst = line.split("Function properties for", 1)[1].strip()
-            inst = inst.split("_kernel", 1)[-1][:48] or inst[-48:]
+            # the identifier after its length prefix (letters and _ only)
+            found = re.search(r"\d([A-Za-z_]+_kernel)(.*)$", inst)
+            if found:
+                inst = found.group(1) + found.group(2)
             usage[inst] = []
         elif inst is not None and ("spill" in line or "Used" in line):
             usage[inst].append(line.split(":", 1)[-1].strip())
@@ -789,16 +811,54 @@ def transposed_sums_close(torch, port, name, got, want, ops) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def n1_paths_at(port, d, block):
+    """N1's paths that take width ``d`` on ``block`` (the stream path only
+    D <= 8, the tensor path only 64-column blocks of 16k rows)."""
+    tr = port.transposed
+    out = ["sparse"]
+    if d <= tr.STREAM_MAX_D:
+        out.append("stream")
+    if block[1] == tr.TENSOR_BN and block[0] % tr.TENSOR_BM_STEP == 0:
+        out.append("tensor")
+    return out
+
+
+def n1_every_path(torch, port, what, ops, block, empty_rows=None):
+    """N1 on ``ops`` down every path that takes them, each launched twice
+    (equal bits), held to the plain version (``transposed_sums_close``),
+    the rule's launch equal bit for bit to its path's; ``empty_rows`` (a
+    slice of Y) must come out 0.  Returns the largest error by path."""
+    n1, d = port.wrappers["N1"], ops[3].shape[1]
+    want = port.ref.spmm_blockell_t_ref(*ops)
+    nbr, nbc = ops[2].shape[0], ops[0].shape[0] - 1
+    rule = port.transposed.n1_plan(d, ops[2].dtype, block, nbr, nbc)[0]
+    errs, outs = {}, {}
+    for path in n1_paths_at(port, d, block):
+        name = f"{what} {path}"
+        got = n1(*ops, path=path)
+        if not torch.equal(got, n1(*ops, path=path)):
+            raise AssertionError(f"{name}: two launches gave different bits")
+        if empty_rows is not None and bool((got[empty_rows] != 0).any()):
+            raise AssertionError(f"{name}: the empty block column is not 0")
+        errs[path] = transposed_sums_close(torch, port, name, got, want, ops)
+        outs[path] = got
+    if not torch.equal(n1(*ops), outs[rule]):
+        raise AssertionError(f"{what}: the rule's launch ({rule}) differs "
+                             "from the same path forced")
+    return errs
+
+
 def ragged_checks_transposed(torch, np, port):
     """Phase 2 for N1 (the transposed SpMM): block fills 0, 1 %, 10 % and
     100 % with a padding block-row (padded slots) and an empty block
-    column, D = 2, 16, 128 and 130, f32, bf16 and f16, every launch twice
-    for equal bits; and K2 over Aᵀ's row view (the sell path's transposed
+    column, D = 1, 2, 4, 8, 16, 128, 130 and 2048, f32, bf16 and f16, down
+    every path that takes the width (``n1_every_path``: the stream path at
+    D <= 8, the tensor and sparse paths at every D), every launch twice for
+    equal bits; and K2 over Aᵀ's row view (the sell path's transposed
     SpMM) against the element route, heavy rows of Aᵀ included."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 6)
     m, n, bm = 1000, 700, 64
-    n1 = port.wrappers["N1"]
     for fill in BLOCKELL_FILLS:
         a = np.where(rng.random((m, n)) < fill, rng.standard_normal((m, n)),
                      0).astype(np.float32)
@@ -810,25 +870,19 @@ def ragged_checks_transposed(torch, np, port):
         col_ptr, col_slots = port.transposed.blockell_columns(ell)
         worst = {}
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            for d in (2, 16, 128, 130):
+            for d in N1_RAGGED_WIDTHS:
                 ops = (col_ptr, col_slots, ell.blocks.to(dtype),
                        torch.randn(ell.shape[0], d, device=dev).to(dtype))
-                what = f"N1 fill={fill} {dtype} d={d}"
-                got, again = n1(*ops), n1(*ops)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{what}: two launches gave "
-                                         "different bits")
-                if bool((got[bm:2 * bm] != 0).any()):
-                    raise AssertionError(f"{what}: the empty block column "
-                                         "is not 0")
-                err = transposed_sums_close(
-                    torch, port, what, got,
-                    port.ref.spmm_blockell_t_ref(*ops), ops)
-                key = str(dtype).split(".")[-1]
-                worst[key] = max(worst.get(key, 0.0), err)
+                errs = n1_every_path(torch, port, f"N1 fill={fill} {dtype} "
+                                     f"d={d}", ops, (bm, bm),
+                                     slice(bm, 2 * bm))
+                for path, err in errs.items():
+                    key = f"{str(dtype).split('.')[-1]} {path}"
+                    worst[key] = max(worst.get(key, 0.0), err)
         log(f"ragged N1 {m}x{n} fill={fill} (W={ell.ell_width}, a padding "
-            "block-row, an empty block column; D = 2, 16, 128, 130; two "
-            "launches equal bit for bit): max_abs_err "
+            f"block-row, an empty block column; D = {N1_RAGGED_WIDTHS}, "
+            "every path that takes D; two launches equal bit for bit, the "
+            "rule's equal to its path's): max_abs_err "
             + " ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     a = np.where(rng.random((m, n)) < 0.003, rng.standard_normal((m, n)),
                  0).astype(np.float32)
@@ -884,7 +938,6 @@ def ragged_checks_width_one(torch, np, port):
                                  port.sddmm_sell.sddmm_sell_slots_ref(*ops))
     if not torch.equal(got, port.wrappers["K4"](*ops)):
         raise AssertionError("K4 k=1: two launches gave different bits")
-    n1 = port.wrappers["N1"]
     for fill in BLOCKELL_FILLS:
         a = np.where(rng.random((m, n)) < fill, rng.standard_normal((m, n)),
                      0).astype(np.float32)
@@ -896,13 +949,9 @@ def ragged_checks_width_one(torch, np, port):
         ops = (*port.transposed.blockell_columns(ell), ell.blocks,
                torch.randn(ell.shape[0], 1, device=dev))
         what = f"N1 d=1 fill={fill}"
-        got = n1(*ops)
-        if not torch.equal(got, n1(*ops)):
-            raise AssertionError(f"{what}: two launches gave different bits")
-        if bool((got[bm:2 * bm] != 0).any()):
-            raise AssertionError(f"{what}: the empty block column is not 0")
-        errs[what] = transposed_sums_close(
-            torch, port, what, got, port.ref.spmm_blockell_t_ref(*ops), ops)
+        for path, err in n1_every_path(torch, port, what, ops, (bm, bm),
+                                       slice(bm, 2 * bm)).items():
+            errs[f"{what} {path}"] = err
     x = torch.randn(m, 1, device=dev)
     got = port.transposed.spmm_sell_t(sell, x)
     if not torch.equal(got, port.transposed.spmm_sell_t(sell, x)):
@@ -912,8 +961,8 @@ def ragged_checks_width_one(torch, np, port):
         torch, "K2 over Aᵀ's row view d=1", got, port.paths.spmm_elements(
             sell.slot_cols, sell.slot_rows, sell.slot_vals, x, n))
     log(f"ragged {m}x{n} at width one (K3 weighted and without a mask, K4 "
-        "at K = 1; N1 at D = 1 with a padding block-row and an empty block "
-        "column; K2 over Aᵀ's row view at D = 1; two launches equal bit for "
+        "at K = 1; N1 at D = 1 down every path, with a padding block-row "
+        "and an empty block column; K2 over Aᵀ's row view at D = 1; two launches equal bit for "
         "bit): max_abs_err " + " ".join(f"{k} {v:.3e}"
                                         for k, v in errs.items()))
 
@@ -1187,6 +1236,35 @@ def n1_nbytes(ell, ops, out_bytes) -> int:
         + int(ell.nblocks.sum()) * ell.bm * ell.bn * ell.blocks.element_size()
 
 
+def n1_work(port, ell, ops, nnz):
+    """N1's path (by its rule) on ``ops`` and the operations the function
+    needs, whatever path runs it: one product per nonzero and column of H,
+    at the faster of FP32 FFMA and three TF32 products a product in f32
+    (the bf16 / f16 mma rate in bf16 / f16).  The path's own count (the
+    tensor and stream paths multiply the whole live blocks, stored zeros
+    included) is only printed beside it.  Returns (path, chunks, flops,
+    peak, what)."""
+    col_ptr, col_slots, blocks, h = ops
+    d, live = h.shape[1], col_slots.shape[0]
+    path, chunks = port.transposed.n1_plan(
+        d, blocks.dtype, (ell.bm, ell.bn), blocks.shape[0],
+        col_ptr.shape[0] - 1)
+    need = 2 * nnz * d
+    if blocks.element_size() == 4:
+        flops, peak, how = min(
+            (need, PEAK_FP32_FLOP_PER_S, "FP32"),
+            (3 * need, PEAK_TF32_FLOP_PER_S, "3xTF32"),
+            key=lambda w: w[0] / w[1])
+    else:
+        flops, peak, how = need, PEAK_BF16_FLOP_PER_S, "bf16 / f16 mma"
+    dense = 2 * live * ell.bm * ell.bn * d
+    done = {"tensor": 3 * dense if blocks.element_size() == 4 else dense,
+            "stream": dense, "sparse": need}[path]
+    return path, chunks, flops, peak, (
+        f"{how} over the {nnz} nonzeros; the {path} path does "
+        f"{done / 1e9:.3f} GFLOP")
+
+
 def kernel_rows(torch, port, graph, path):
     """Each SpMM kernel of this graph's path at the serving shapes: held to
     its plain version, timed beside it, ``torch.sparse.mm`` and its
@@ -1374,17 +1452,17 @@ def expected(port, per_call, calls):
 
 
 def measure(torch, name, run, plain, library, nbytes, flops, what,
-            close=None):
+            close=None, peak=PEAK_FP32_FLOP_PER_S):
     """One kernel row: held to its plain version (by ``close(name, got,
     want)``, else ``check_close``), timed beside it and beside the library
     call (``library`` None: there is none), with the bound from ``nbytes``
-    and ``flops``."""
+    and ``flops`` at ``peak`` FLOP/s."""
     close = close or (lambda *a: check_close(torch, *a))
     err = close(name, run(), plain())
     row = dict(max_abs_err=err, ms=time_ms(torch, run),
                plain_ms=time_ms(torch, plain),
                library_ms=None if library is None else time_ms(torch, library))
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
     lib = "no single PyTorch call" if library is None \
         else f"{row['library_ms']:.4f} ms"
     log(f"{name} [{what}]: max_abs_err {err:.3e} | kernel {row['ms']:.4f} "
@@ -2122,7 +2200,8 @@ def transposed_rows(torch, port, graph, want_path, gen, widths=None):
     (b) K2 over Aᵀ's row view (with the per-call gather of the values),
     held to K2's plain version; each beside its bound, ``torch.sparse.mm``
     on a CSR of Aᵀ and the plain route it replaced (``einsum`` +
-    ``index_add_`` on the transposed Block-COO, or the element route).
+    a fixed-order segmented sum on the transposed Block-COO, or the element
+    route).
     Returns the rows: "N1" at D = 128 on (a), "N1 D=2", "K2 Aᵀ D=128",
     "K2 Aᵀ D=2"."""
     dev = torch.device(DEVICE)
@@ -2136,24 +2215,33 @@ def transposed_rows(torch, port, graph, want_path, gen, widths=None):
         library = lambda: torch.sparse.mm(lib_t, g)  # noqa: E731
         if want_path == "ell":
             ell = graph.adj.form("ell")
-            ops = (*tr.blockell_columns(ell), ell.blocks,
-                   paths.pad_rows(g, ell.shape[0]))
+            t0 = time.perf_counter()
+            h_in = paths.pad_rows(g, ell.shape[0])
+            ops = (*tr.blockell_columns(ell), ell.blocks, h_in)
+            copy_ms = 0.0 if h_in is g else time_ms(
+                torch, lambda: paths.pad_rows(g, ell.shape[0]))
             name = "N1" if d == port.cfg.hidden else f"N1 D={d}"
+            path, chunks, flops, peak, how = n1_work(port, ell, ops, nnz)
             row = measure(
                 torch, f"N1 at D={d} (Aᵀ ḡ on A's Block-ELL blocks)",
                 lambda: port.wrappers["N1"](*ops),
                 lambda: port.ref.spmm_blockell_t_ref(*ops), library,
-                n1_nbytes(ell, ops, out_bytes), 2 * nnz * d,
-                f"nbc={ops[0].shape[0] - 1} list entries "
+                n1_nbytes(ell, ops, out_bytes), flops,
+                f"path {path} ({chunks} chunk(s) a column), operations "
+                f"{how}; nbc={ops[0].shape[0] - 1} list entries "
                 f"{ops[1].shape[0]} blocks {ell.bm}x{ell.bn} D={d}; {nnz} "
                 "nonzeros; library: torch.sparse.mm on a CSR of Aᵀ",
                 close=lambda *a: transposed_sums_close(torch, port, *a,
-                                                       ops))
+                                                       ops), peak=peak)
+            row.update(path=path, copy_ms=copy_ms)
+            log(f"  {name}: path {path}; copies around the kernel (H padded "
+                f"to A's rows): {copy_ms:.4f} ms ({time.perf_counter() - t0:.1f}"
+                " s for the row)")
             coo = at.form("coo")
             replaced = lambda: paths.spmm_coo(  # noqa: E731
                 coo, paths.pad_rows(g, coo.shape[1]))
-            old = ("einsum + index_add_ on the transposed Block-COO, not "
-                   "deterministic on CUDA")
+            old = ("einsum on the transposed Block-COO and a fixed-order "
+                   "segmented sum")
         else:
             sell = graph.adj.form("sell")
             row_slot, row_nnz, cols, perm, heavy = tr.sell_t_operands(sell)
@@ -3967,19 +4055,24 @@ def peak_gib(torch) -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def lm_generate_run(torch, np, port, params, cfg, b, s, n_new, label, rng):
+def lm_generate_run(torch, np, port, box, cfg, b, s, n_new, label, rng):
     """``ServingEngine.generate`` of ``n_new`` tokens after B prompts of S
     tokens (counted; wall, tokens/s and peak memory), then the same
     entry points it runs timed one by one (prefill, the median decode
     step with a sync, one decode step profiled) and the greedy agreement
     with the teacher-forced argmax in the same dtype (printed, not
-    gated)."""
+    gated).  The engine takes the tree in ``box[0]`` and ``box[0]`` then
+    holds the engine's own (cast) tree: where the caller keeps no other
+    reference, the f32 leaves the engine cast are freed (F6), and a later
+    run's engine casts nothing."""
     dev = torch.device(DEVICE)
     eng_mod = port.engine
     prompts = lm_tokens(np, rng, cfg.vocab_size, b, s)
-    eng = eng_mod.ServingEngine(params, cfg,
+    eng = eng_mod.ServingEngine(box[0], cfg,
                                 eng_mod.ServeConfig(max_len=s + n_new + 1))
+    box[0] = eng.params
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     before = port.counts()
     t0 = time.perf_counter()
@@ -3989,7 +4082,7 @@ def lm_generate_run(torch, np, port, params, cfg, b, s, n_new, label, rng):
     after = port.counts()
     launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
     peak = peak_gib(torch)
-    run_p, lm = eng._run_params, port.lm
+    run_p, lm = eng.params, port.lm
     ptoks = torch.as_tensor(prompts, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -4027,13 +4120,15 @@ def lm_generate_run(torch, np, port, params, cfg, b, s, n_new, label, rng):
            "prefill_ms": prefill_ms,
            "decode_ms_median": statistics.median(steps),
            "decode_ms_min": min(steps), "peak_gib": peak,
+           "held_gib": held,
            "decode_busy_pct": None if busy is None
            else 100 * busy / prof_wall,
            "greedy_agreement": agree, "launches": launches}
     log(f"{label}: B={b} S={s} n_new={n_new}: generate {wall:.3f} s, "
         f"{row['tokens_per_s']:.1f} tokens/s; prefill {prefill_ms:.2f} ms; "
         f"decode median {row['decode_ms_median']:.3f} ms a step (min "
-        f"{row['decode_ms_min']:.3f}); peak {peak:.2f} GiB; greedy tokens "
+        f"{row['decode_ms_min']:.3f}); device memory held once the engine "
+        f"is built {held:.2f} GiB, peak {peak:.2f} GiB; greedy tokens "
         f"equal to the teacher-forced argmax: {100 * agree:.1f} %; "
         f"launches {launches}")
     torch.cuda.empty_cache()
@@ -4105,10 +4200,12 @@ def lm_dense_phase(torch, np, port, params, rng):
     del p_cpu, p_cut, got, want
 
     out["bf16"] = {}
+    # the caller keeps the f32 tree (sparsify_lm prunes it next), so the
+    # engine's cast copy sits beside it
     for b, s, n_new in LM_BF16_RUNS:
-        label = f"9a dense bf16 B={b} S={s}"
+        label = f"9a dense bf16 B={b} S={s} (the f32 tree kept beside)"
         out["bf16"][f"B{b}_S{s}"] = lm_generate_run(
-            torch, np, port, params, cfg, b, s, n_new, label, rng)
+            torch, np, port, [params], cfg, b, s, n_new, label, rng)
     return out
 
 
@@ -4150,21 +4247,36 @@ def n1_lm_rows(torch, port, sp):
         for d in LM_N1_WIDTHS:
             h = torch.randn(ell.shape[0], d, device=dev, generator=gen)
             ops = (*tr.blockell_columns(ell), ell.blocks, h)
+            path, chunks, flops, peak, how = n1_work(port, ell, ops, nnz)
             row = measure(
                 torch, f"N1 LM {key}ᵀ at D={d}",
                 lambda: port.wrappers["N1"](*ops),
                 lambda: port.ref.spmm_blockell_t_ref(*ops),
                 lambda: torch.sparse.mm(lib_t, h[:m]),
-                n1_nbytes(ell, ops, ell.shape[1] * d * 4), 2 * nnz * d,
-                f"W {m}x{n}, blocks {ell.bm}x{ell.bn}, width "
+                n1_nbytes(ell, ops, ell.shape[1] * d * 4), flops,
+                f"path {path} ({chunks} chunk(s) a column), operations "
+                f"{how}; W {m}x{n}, blocks {ell.bm}x{ell.bn}, width "
                 f"{ell.indices.shape[1]}, {int(ell.nblocks.sum())} real "
                 f"blocks, {nnz} nonzeros, D={d}; library: "
                 "torch.sparse.mm on a CSR of Wᵀ",
-                close=lambda *a: transposed_sums_close(torch, port, *a, ops))
+                close=lambda *a: transposed_sums_close(torch, port, *a, ops),
+                peak=peak)
             row["dense_ms"] = time_ms(torch, lambda: dense_t @ h[:m])
-            log(f"  N1 LM {key}ᵀ D={d}: dense torch.matmul (TF32 off) "
-                f"{row['dense_ms']:.4f} ms, {row['dense_ms'] / row['ms']:.2f}"
-                f"x N1's time; {row['ms'] / row['bound_ms']:.2f}x its bound")
+            # the copies ops.matmul makes around N1 for x @ W with bf16
+            # activations x [D, m]: xᵀ made contiguous, promoted to f32
+            x = torch.randn(d, m, device=dev, generator=gen).bfloat16()
+            xt = x.T.contiguous()
+            row.update(path=path, chunks=chunks,
+                       transpose_ms=time_ms(torch, lambda: x.T.contiguous()),
+                       promote_ms=time_ms(torch, lambda: xt.float()))
+            log(f"  N1 LM {key}ᵀ D={d}: path {path}; dense torch.matmul "
+                f"(TF32 off) {row['dense_ms']:.4f} ms, "
+                f"{row['dense_ms'] / row['ms']:.2f}x N1's time; "
+                f"{row['ms'] / row['bound_ms']:.2f}x its bound; copies around "
+                f"the kernel for bf16 activations: xᵀ contiguous "
+                f"{row['transpose_ms']:.4f} ms, bf16 -> f32 "
+                f"{row['promote_ms']:.4f} ms")
+            del x, xt
             rows[f"N1 LM {key} D={d}"] = row
             del h, ops
         del lib_t, dense_t
@@ -4191,10 +4303,13 @@ def default_prune_finding(torch, port, w):
             "plans": {d: p.path for d, p in plans.items()}}
 
 
-def lm_pruned_phase(torch, np, port, sp, rng):
+def lm_pruned_phase(torch, np, port, owned, rng):
     """9b after sparsify: plans, N1 per decode step, logits held to
-    ``dense_reference``, bf16 generation, N1's rows."""
+    ``dense_reference``, bf16 generation, N1's rows.  ``owned`` holds the
+    only reference to the pruned tree: the first bf16 engine takes it, so
+    its f32 dense leaves go once cast (F6)."""
     dev = torch.device(DEVICE)
+    sp = owned[0]
     cfg = port.lm_cfg
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     out = {"report": port.pruning.weight_sparsity_report(sp)}
@@ -4239,15 +4354,15 @@ def lm_pruned_phase(torch, np, port, sp, rng):
                   "serve_s": serve_s, "peak_gib": serve_peak,
                   "n1_per_decode_step": want_n1, "max_abs_err": max(errs),
                   "max_want": scale}
-    del dense, got, want, toks
+    del dense, got, want, toks, sp
     torch.cuda.empty_cache()
     out["bf16"] = {}
     for b, s, n_new in LM_BF16_RUNS:
-        label = f"9b pruned bf16 B={b} S={s}"
+        label = f"9b pruned bf16 B={b} S={s} (the engine owns the tree)"
         out["bf16"][f"B{b}_S{s}"] = lm_generate_run(
-            torch, np, port, sp, cfg, b, s, n_new, label, rng)
+            torch, np, port, owned, cfg, b, s, n_new, label, rng)
     before = port.counts()["N1"]
-    out["n1_rows"] = n1_lm_rows(torch, port, sp)
+    out["n1_rows"] = n1_lm_rows(torch, port, owned[0])
     out["n1_timing_launches"] = port.counts()["N1"] - before
     return out
 
@@ -4348,20 +4463,29 @@ def lm_phase(torch, np, port):
     summary["default_prune"] = default_prune_finding(
         torch, port, params["periods"][0]["mlp"]["wi"][0])
     t2 = time.perf_counter()
-    sp = port.pruning.sparsify_lm(params, port.lm_cfg, **LM_PRUNE)
+    # a list holding the only reference, so that the engine can own it
+    owned = [port.pruning.sparsify_lm(params, port.lm_cfg, **LM_PRUNE)]
     torch.cuda.synchronize()
     sparsify_s = time.perf_counter() - t2
     del params  # the dense MLP weights go; sp keeps views of the rest
     torch.cuda.empty_cache()
     log(f"9b sparsify_lm({LM_PRUNE}) over {port.lm_cfg.n_layers} layers: "
         f"{sparsify_s:.1f} s; weight_sparsity_report "
-        f"{port.pruning.weight_sparsity_report(sp)}; device memory "
+        f"{port.pruning.weight_sparsity_report(owned[0])}; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    summary["pruned"] = lm_pruned_phase(torch, np, port, sp, rng)
+    summary["pruned"] = lm_pruned_phase(torch, np, port, owned, rng)
     summary["pruned"].update(sparsify_s=sparsify_s,
                              wall_s=time.perf_counter() - t1)
-    del sp
+    del owned
     torch.cuda.empty_cache()
+    for run, dense in summary["dense"]["bf16"].items():
+        pruned = summary["pruned"]["bf16"][run]
+        log(f"9b pruned against dense bf16, {run}: prefill "
+            f"{pruned['prefill_ms']:.2f} ms against {dense['prefill_ms']:.2f}"
+            f" ({pruned['prefill_ms'] / dense['prefill_ms']:.2f}x); decode "
+            f"median {pruned['decode_ms_median']:.3f} ms a step against "
+            f"{dense['decode_ms_median']:.3f}; peak {pruned['peak_gib']:.2f} "
+            f"GiB against {dense['peak_gib']:.2f}")
     t1 = time.perf_counter()
     summary["smoke"] = lm_smoke_phase(torch, np, port, rng)
     after = port.counts()
@@ -4422,9 +4546,9 @@ def main() -> int:
                 spills.append(name)
                 log(f"  spill: {name} {inst}: " + "; ".join(lines))
     log(f"ptxas spills: {len(spills)} instance(s)")
-    for inst, lines in sorted(ptxas_instances(
-            logs["spmm_blockell"]).items()):  # K1/K5: none may spill
-        log(f"  K1/K5 {inst}: " + "; ".join(lines))
+    for name, tag in (("spmm_blockell", "K1/K5"), ("spmm_blockell_t", "N1")):
+        for inst, lines in sorted(ptxas_instances(logs[name]).items()):
+            log(f"  {tag} {inst}: " + "; ".join(lines))  # none may spill
     for source in ("spmm_blockell", "spmm_blockell_t"):
         if source in spills:
             raise AssertionError(f"a {source} instance spills")

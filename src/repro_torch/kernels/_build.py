@@ -38,7 +38,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "spmm_blockell": ("spmm_blockell",
                       [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]),
-    "spmm_blockell_t": ("spmm_blockell_t", [_I] + [_P] * 5 + [_I] * 5 + [_P]),
+    "spmm_blockell_t": ("spmm_blockell_t",
+                        [_I, _I] + [_P] * 6 + [_I] * 7 + [_P]),
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
     "sddmm": ("sddmm_tiles", [_P] * 6 + [_I] * 7 + [_P]),
     "sddmm_pattern": ("sddmm_pattern", [_P] * 6 + [_I] * 6 + [_P]),

@@ -54,16 +54,19 @@ EPS = 1e-12       # the segment-softmax denominator guard
 def _two_sweep(s, mask, row_of, n_rows, vb):
     """The reference's blocked two-sweep over tiles t of block-row
     ``row_of[t]``: s, mask [T, bm, bn] scores and pattern, vb [T, bn, D];
-    returns [n_rows, bm, D]."""
+    returns [n_rows, bm, D].  Each block-row's tiles are summed in one
+    fixed order (``paths.segment_sums``: a Block-COO form on the ell path
+    reaches this on the card, where ``index_add_`` adds with atomics)."""
+    from repro_torch.sparse.paths import segment_sums
+
     t_count, bm, _ = s.shape
-    d = vb.shape[2]
     idx = row_of.long()
     mx = s.new_full((n_rows, bm), NEG_INF).scatter_reduce(
         0, idx[:, None].expand(t_count, bm), s.amax(dim=2), "amax")
     p = torch.where(mask, torch.exp(s - mx[idx][:, :, None]), 0.0)
-    den = s.new_zeros((n_rows, bm)).index_add_(0, idx, p.sum(dim=2))
-    y = s.new_zeros((n_rows, bm, d)).index_add_(
-        0, idx, torch.einsum("tmn,tnd->tmd", p, vb))
+    den = segment_sums(p.sum(dim=2), row_of, row_of, n_rows)
+    y = segment_sums(torch.einsum("tmn,tnd->tmd", p, vb), row_of, row_of,
+                     n_rows)
     return y / den.clamp_min(EPS)[:, :, None]
 
 
@@ -363,7 +366,8 @@ def fused_attn_elements(row_ids, col_ids, values, q, kt, v, m: int, *,
                         act: str = "leaky_relu",
                         slope: float = 0.2) -> torch.Tensor:
     """The csr path (element-granular, E-length by nature)."""
-    from repro_torch.sparse.paths import sddmm_element_dots, spmm_elements
+    from repro_torch.sparse.paths import (sddmm_element_dots, segment_sums,
+                                          spmm_elements)
 
     dots = sddmm_element_dots(row_ids, col_ids, q, kt).float()
     mask = values != 0
@@ -371,7 +375,7 @@ def fused_attn_elements(row_ids, col_ids, values, q, kt, v, m: int, *,
     idx = row_ids.long()
     mx = e.new_full((m,), NEG_INF).scatter_reduce(0, idx, e, "amax")
     ex = torch.where(mask, torch.exp(e - mx[idx]), 0.0)
-    den = e.new_zeros((m,)).index_add_(0, idx, ex)
+    den = segment_sums(ex, row_ids, col_ids, m)
     alpha = ex / den[idx].clamp_min(EPS)
     return spmm_elements(row_ids, col_ids, alpha.to(v.dtype), v, m).to(
         torch.promote_types(q.dtype, v.dtype))

@@ -24,13 +24,30 @@ backward's per-step ``single_form(a, ...).T`` matrices find them built.
 Padded slots are left out by structure (``nblocks``, ``tile_row_nnz``),
 never by a value test: a stored zero is still a structural entry.
 
+N1 runs one of three paths, picked by ``n1_plan`` from D, the dtype, the
+block shape and the structure's shape alone (never from the values, never
+with a host sync), so the same inputs always take the same path and two
+launches give equal bits:
+
+  * ``"stream"`` (D <= ``STREAM_MAX_D``): each live block read once,
+    coalesced, with no compaction; each column's list cut into ``chunks``
+    near-equal runs, one CTA each, the runs' f32 partials added in chunk
+    order by a second kernel (so a launch with ``chunks`` > 1 runs two
+    kernels);
+  * ``"tensor"`` (64-column blocks, bm a multiple of 16, D >=
+    ``TENSOR_MIN_D``): the whole blocks on the tensor cores, f32 as three
+    TF32 products per product, bf16 / f16 as m16n8k16 with f32 sums;
+  * ``"sparse"`` otherwise: the nonzero-granular FFMA body (each block's
+    nonzeros compacted by column).
+
 The wrapper runs the plain version (``ref.spmm_blockell_t_ref``) for CPU
 tensors and the kernel for CUDA tensors; ``spmm_blockell_t_kernel
-.launches`` counts kernel launches.
+.launches`` counts its calls that launch (one a call, whichever path,
+the stream path's combine kernel included).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,6 +64,48 @@ from repro_torch.memo import Table, memoized
 # Aᵀ on the slot columns
 _ELL_LISTS: Table = {}
 _SELL_LISTS: Table = {}
+
+# N1's paths, by their code in csrc/spmm_blockell_t.cu
+N1_PATHS = ("sparse", "tensor", "stream")
+# the widest D the stream path takes (its kernel holds 8 columns of H)
+STREAM_MAX_D = 8
+# CTAs the stream path aims at: one a streaming multiprocessor of an H100
+# (more chunks add partials and a second kernel without a faster stream:
+# python -m repro_torch.kernels.spmm.transposed_parts)
+STREAM_CTAS = 132
+# the tensor path's block: 64 columns (Y rows of a tile), bm a multiple of
+# TENSOR_BM_STEP (one m16n8k16 depth)
+TENSOR_BN, TENSOR_BM_STEP = 64, 16
+# the narrowest D the tensor path takes; below it the sparse path.  On
+# graph (a) of chip_smoke.py (10 % fill, f32) the sparse path wins at
+# D = 16 and 32 (1.06 against 1.24 ms), the two tie at D = 64 and the
+# tensor path wins at D = 128 (1.24 against 1.56 ms)
+# (python -m repro_torch.kernels.spmm.transposed_parts); bf16 / f16 take
+# the same crossover, not measured apart
+TENSOR_MIN_D = 64
+
+
+def stream_chunks(nbr: int, nbc: int) -> int:
+    """Runs each block column's list is cut into on the stream path: enough
+    for ``STREAM_CTAS`` CTAs over ``nbc`` columns, at most one a block-row
+    (a list holds at most ``nbr`` slots)."""
+    if nbc < 1:
+        return 1
+    return max(1, min(nbr, -(-STREAM_CTAS // nbc)))
+
+
+def n1_plan(d: int, dtype: torch.dtype, block: Tuple[int, int], nbr: int,
+            nbc: int) -> Tuple[str, int]:
+    """N1's (path, chunks) for Y [nbc*bn, D] = Aᵀ H over ``nbr`` x ``nbc``
+    blocks of shape ``block`` = (bm, bn) in ``dtype``: a pure function of
+    these, so the same inputs always take the same path (every dtype takes
+    the same crossovers)."""
+    bm, bn = block
+    if d <= STREAM_MAX_D:
+        return "stream", stream_chunks(nbr, nbc)
+    if bn == TENSOR_BN and bm % TENSOR_BM_STEP == 0 and d >= TENSOR_MIN_D:
+        return "tensor", 1
+    return "sparse", 1
 
 
 def blockell_columns(ell: BlockELL) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,11 +133,14 @@ def blockell_columns(ell: BlockELL) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def spmm_blockell_t_kernel(col_ptr: torch.Tensor, col_slots: torch.Tensor,
-                           blocks: torch.Tensor,
-                           h: torch.Tensor) -> torch.Tensor:
+                           blocks: torch.Tensor, h: torch.Tensor, *,
+                           path: Optional[str] = None) -> torch.Tensor:
     """N1: Y [nbc*bn, D] = Aᵀ @ H with A's Block-ELL ``blocks`` read in
     place (``h`` [nbr*bm, D], A's padded rows); the lists of
-    ``blockell_columns``."""
+    ``blockell_columns``.  ``path`` forces one of ``N1_PATHS`` (default:
+    ``n1_plan``'s); the stream path is cut into ``n1_plan``'s chunks."""
+    if path is not None and path not in N1_PATHS:
+        raise ValueError(f"N1 path {path!r} not one of {N1_PATHS}")
     if h.device.type == "cpu":
         return spmm_blockell_t_ref(col_ptr, col_slots, blocks, h)
     require_cuda(h, "spmm_blockell_t_kernel")
@@ -98,13 +160,28 @@ def spmm_blockell_t_kernel(col_ptr: torch.Tensor, col_slots: torch.Tensor,
     check_operand(blocks, "blocks", None, (nbr, w, bm, bn), dev)
     check_operand(h, "h", None, (n, d), dev)
     blocks, h = blocks.to(out), h.to(out)
+    rule, chunks = n1_plan(d, out, (bm, bn), nbr, nbc)
+    path = path or rule
+    if path == "tensor" and (bn != TENSOR_BN or bm % TENSOR_BM_STEP):
+        raise ValueError(f"N1's tensor path takes {TENSOR_BN}-column blocks "
+                         f"of a multiple of {TENSOR_BM_STEP} rows, not "
+                         f"({bm}, {bn})")
+    if path == "stream" and d > STREAM_MAX_D:
+        raise ValueError(f"N1's stream path takes D <= {STREAM_MAX_D}, "
+                         f"not {d}")
+    if path != "stream":
+        chunks = 1
     y = torch.empty((nbc * bn, d), dtype=out, device=dev)
+    part = torch.empty((nbc * chunks, bn, d), dtype=torch.float32,
+                       device=dev) if chunks > 1 else None
     with torch.cuda.device(dev):
         err = _build.entry("spmm_blockell_t")(
-            KERNEL_DTYPES[out], col_ptr.data_ptr(), col_slots.data_ptr(),
-            blocks.data_ptr(), h.data_ptr(), y.data_ptr(), nbc, w, bm, bn,
-            d, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "N1 spmm_blockell_t")
+            KERNEL_DTYPES[out], N1_PATHS.index(path), col_ptr.data_ptr(),
+            col_slots.data_ptr(), blocks.data_ptr(), h.data_ptr(),
+            y.data_ptr(), None if part is None else part.data_ptr(), nbr,
+            nbc, w, bm, bn, d, chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"N1 spmm_blockell_t ({path})")
     spmm_blockell_t_kernel.launches += 1
     return y
 

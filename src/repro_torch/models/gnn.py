@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.paper_gnn import GNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparse.matrix import SparseMatrix
+from repro_torch.sparse.paths import segment_sums
 from repro_torch.sparse.ops import fused_graph_attention, matmul, sample
 
 # adjacency paths a Graph can execute (the densified fallback is
@@ -212,15 +213,19 @@ def gat_params_from_numpy(params: Dict, device="cuda") -> Dict:
     return gcn_params_from_numpy(params, device)
 
 
-def _segment_softmax(scores, row_ids, n_rows: int):
+def _segment_softmax(scores, row_ids, n_rows: int, col_ids=None):
     """Softmax of ``scores`` within each row's edges (``row_ids``).  The
     row max is a shift the softmax does not depend on, so it is detached:
-    ``scatter_reduce("amax")`` would split its gradient among ties."""
+    ``scatter_reduce("amax")`` would split its gradient among ties.  The
+    denominators are summed in one fixed order (``paths.segment_sums``,
+    its row order memoized on ``row_ids`` beside the triplet's
+    ``col_ids``, by default the row ids themselves)."""
+    col_ids = row_ids if col_ids is None else col_ids
     idx = row_ids.long()
     mx = scores.detach().new_full((n_rows,), -float("inf")).scatter_reduce(
         0, idx, scores.detach(), "amax")
     ex = torch.exp(scores - mx[idx])
-    den = scores.new_zeros((n_rows,)).index_add_(0, idx, ex)
+    den = segment_sums(ex, row_ids, col_ids, n_rows)
     return ex / den[idx].clamp_min(1e-12)
 
 
@@ -259,7 +264,8 @@ def gat_forward(params, graph: Graph, x: torch.Tensor, *,
         else:
             c = torch.stack([torch.ones_like(s_dst), s_dst], dim=0)
             e = sample(patt, q, c, policy=policy).data  # [nnz]
-            alpha = _segment_softmax(F.leaky_relu(e, 0.2), graph.row_ids, n)
+            alpha = _segment_softmax(F.leaky_relu(e, 0.2), graph.row_ids,
+                                     n, graph.adj.form("csr")[1])
             h = matmul(patt.with_data(alpha), h, policy=policy)
         if i < n_layers - 1:
             h = F.elu(h)

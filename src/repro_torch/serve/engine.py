@@ -4,7 +4,8 @@
 points (``repro_torch.models.transformer``) for a batch of prompts with
 greedy or temperature decoding, eagerly on the params' device; it casts
 the dense weights to the compute dtype once, at construction
-(``transformer.cast_weights``: the same bits as casting at each use).
+(``transformer.cast_weights``: the same bits as casting at each use), and
+keeps only the cast tree.
 ``make_prefill_step`` / ``make_serve_step`` are the reference's entry
 closures.
 
@@ -72,13 +73,19 @@ class ServingEngine:
     ``softmax(logits / temperature)`` with ``torch.multinomial`` on an
     engine-owned ``torch.Generator`` seeded with ``scfg.seed``: the same
     tokens for the same seed, but not ``jax.random.categorical``'s draws.
+
+    ``params`` is the one weight tree the engine holds and runs: the
+    given tree with every dense leaf that the model only reads cast once
+    to the compute dtype (``transformer.cast_weights``; the f32 leaves
+    and the sparse weights are the given objects).  At f32 it is the
+    given tree itself.  The engine keeps no reference to the f32 leaves
+    it cast, so they are freed once the caller drops its own.
     """
 
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig):
-        self.params = params
+        self.params = cast_weights(params, cfg)
         self.cfg = cfg
         self.scfg = scfg
-        self._run_params = cast_weights(params, cfg)
         self.device = params["embed"].device
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(scfg.seed)
@@ -101,13 +108,13 @@ class ServingEngine:
         if enc_embeds is not None:
             kw["enc_embeds"] = torch.as_tensor(enc_embeds, device=self.device)
         toks = torch.as_tensor(np.asarray(prompts), device=self.device)
-        logits, cache = prefill(self._run_params, self.cfg, toks,
+        logits, cache = prefill(self.params, self.cfg, toks,
                                 self.scfg.max_len, **kw)
         out = []
         tok = self._sample(logits)[:, None]
         out.append(tok)
         for _ in range(n_new - 1):
-            logits, cache = decode_step(self._run_params, self.cfg, tok,
+            logits, cache = decode_step(self.params, self.cfg, tok,
                                         cache)
             tok = self._sample(logits)[:, None]
             out.append(tok)

@@ -347,7 +347,7 @@ def _form_row_softmax(a: SparseMatrix, form_name: str, e: torch.Tensor,
         mx = e.new_full((m,), fat.NEG_INF).scatter_reduce(0, rows, e, "amax")
         ex = e.sub_(mx[rows]).exp_().mul_(mask)
         den = _sell_row_sums(form, ex) if form_name == "sell" \
-            else ex.new_zeros((m,)).index_add_(0, rows, ex)
+            else paths.segment_sums(ex, form[0], form[1], m)
         return ex.div_(den[rows].clamp_min(fat.EPS))
     if form_name == "ell":
         mx = e.amax(dim=(1, 3))  # [nbr, bm]
@@ -360,7 +360,7 @@ def _form_row_softmax(a: SparseMatrix, form_name: str, e: torch.Tensor,
     mx = e.new_full((nbr, form.bm), fat.NEG_INF).scatter_reduce(
         0, rows[:, None].expand(-1, form.bm), e.amax(dim=2), "amax")
     ex = e.sub_(mx[rows][:, :, None]).exp_().mul_(mask)
-    den = ex.new_zeros((nbr, form.bm)).index_add_(0, rows, ex.sum(dim=2))
+    den = paths.segment_sums(ex.sum(dim=2), form.rows, form.cols, nbr)
     return ex.div_(den[rows][:, :, None].clamp_min(fat.EPS))
 
 

@@ -74,6 +74,15 @@ def _row_sums(terms: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
                                 unsafe=True)
 
 
+def segment_sums(terms: torch.Tensor, row_ids: torch.Tensor,
+                 col_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Each row's sum of ``terms`` (one per element of the triplet, along
+    dim 0) in one fixed order, ``row_order``'s: the ``segment_sum`` of the
+    reference where ``index_add_`` on CUDA would add with atomics."""
+    perm, _, lengths = row_order(row_ids, col_ids, num_rows)
+    return _row_sums(terms[perm], lengths)
+
+
 def spmm_elements(row_ids, col_ids, values, h, num_rows: int):
     """Y = A @ H via gather + a fixed-order segmented sum over each row's
     elements (element-granular, f32 sums); the triplet's rows need not
@@ -168,16 +177,19 @@ def spmm_ell_t(ell: BlockELL, h):
 
 
 def spmm_coo(coo: BlockCOO, h):
-    """Y = A @ H with A in Block-COO (``index_add_`` over the nonzero
-    blocks; padded entries carry zero blocks); H padded to
-    coo.shape[1]; f32 sums in ``result_type(blocks, h)``, as the
-    Block-ELL path."""
+    """Y = A @ H with A in Block-COO (each nonzero block's product, then a
+    fixed-order segmented sum over each block-row's blocks; padded entries
+    carry zero blocks); H padded to coo.shape[1]; f32 sums in
+    ``result_type(blocks, h)``, as the Block-ELL path.  The blocks are
+    taken in ``row_order``, so the one copy is of the blocks, not of the
+    products."""
     mp, np_ = coo.shape
     _, bm, bn = coo.blocks.shape
     d = h.shape[1]
-    prods = torch.einsum("emn,end->emd", coo.blocks.float(),
-                         h.reshape(np_ // bn, bn, d)[coo.cols].float())
-    out = prods.new_zeros((mp // bm, bm, d)).index_add_(0, coo.rows, prods)
+    perm, cols, lengths = row_order(coo.rows, coo.cols, mp // bm)
+    prods = torch.einsum("emn,end->emd", coo.blocks[perm].float(),
+                         h.reshape(np_ // bn, bn, d)[cols.long()].float())
+    out = _row_sums(prods, lengths)
     return out.reshape(mp, d).to(torch.promote_types(coo.blocks.dtype,
                                                      h.dtype))
 
@@ -237,8 +249,11 @@ def sample_sell(sell: SellCS, b, c):
 
 
 def spmm_dense(a_dense, h):
-    """Dense baseline (the paper's Fig. 2 failure mode)."""
-    return a_dense @ h
+    """Dense baseline (the paper's Fig. 2 failure mode); mixed operands
+    (f32 weights, bf16 activations) are promoted to their common type, as
+    ``jnp.matmul`` promotes them."""
+    out = torch.promote_types(a_dense.dtype, h.dtype)
+    return a_dense.to(out) @ h.to(out)
 
 
 def sample_blocks(full, rows, cols, bm: int, bn: int):

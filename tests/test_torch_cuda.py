@@ -28,12 +28,17 @@ same backward on the CPU (rtol 1e-4, atol 1e-5), A's values trained
 where the rule reads them, so ``dA`` runs through K3p / K4, with the
 kernels each backward launches counted (the transposed products on N1 or
 on K2 over Aᵀ's row view).  N1 (the transposed SpMM) against its plain
-version at every block fill, six block shapes, D = 2 to 130 and f32 /
-bf16 / f16, two launches equal bit for bit; K2 over Aᵀ's row view against
+version at every block fill, six block shapes, D = 1 to 2048 and f32 /
+bf16 / f16, by its rule and down each of its paths forced (stream,
+tensor, sparse), and at the pruned gemma3-4b MLP weights' shapes, two
+launches equal bit for bit; K2 over Aᵀ's row view against
 the dense product and the CPU; and a GCN and a GAT training step on
 graphs of (a)'s and (b)'s structure run twice without
 ``torch.use_deterministic_algorithms``, every gradient equal per
-``torch.equal``.  Batched serving's operands: K5 / K1 on a bucket-padded
+``torch.equal``; the routes that sum in ``paths.row_order`` (a csr
+attention request, an unfused GAT request, the attention backward on a
+csr-only and a coo-only matrix, the Block-COO transpose) run twice, equal
+per ``torch.equal``.  Batched serving's operands: K5 / K1 on a bucket-padded
 16 x 16 block-diagonal composition with all-zero dummy graphs, the batched
 engine at ``form="ell"`` against the CPU with its launches counted, K2 /
 K6 / K4 / K8 on a SELL composition and on a ``DeltaGraph`` overlay after
@@ -1111,7 +1116,38 @@ def test_backward_on_card_matches_cpu(dev, kind, rule):
 # ---------------------------------------------------------------------------
 
 T_BLOCKS = [(64, 64), (64, 32), (32, 64), (128, 128), (5, 7), (48, 30)]
-T_WIDTHS = [2, 16, 128, 130]
+T_WIDTHS = [1, 2, 4, 8, 16, 128, 130, 2048]
+
+
+def _transposed_operands(dev, dtype, fill, block, d, m=301, n=277):
+    """N1's operands at one block fill, with an all-padding block-row
+    (padded slots) and an empty block column (rows bn..2 bn of Y)."""
+    bm, bn = block
+    a = _sparse(d + bm + bn, m, n, fill)
+    if fill == 1.0:
+        a[a == 0] = 1.0
+    a[bm:2 * bm] = 0.0
+    a[:, bn:2 * bn] = 0.0
+    ell = BlockELL.from_dense(a, bm, bn, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    h = torch.randn(ell.shape[0], d, device=dev, generator=gen).to(dtype)
+    return (*blockell_columns(ell), ell.blocks.to(dtype), h)
+
+
+def _assert_transposed_close(got, ops):
+    """N1 against its plain version: sums of up to nbr * bm terms in
+    another order, held to the dtype's tolerance plus twice √n · eps ·
+    Σ|term|."""
+    col_ptr, col_slots, blocks, h = ops
+    want = spmm_blockell_t_ref(*ops)
+    assert got.dtype == want.dtype == blocks.dtype
+    mag = spmm_blockell_t_ref(col_ptr, col_slots, blocks.abs(), h.abs())
+    eps = torch.finfo(torch.float32).eps
+    tol = DTYPE_TOL[blocks.dtype]
+    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
+        + 2 * eps * h.shape[0] ** 0.5 * mag.float()
+    worst = float(((got.float() - want.float()).abs() / bound).max())
+    assert worst <= 1, f"an element is {worst:.2f}x its tolerance"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
@@ -1119,39 +1155,81 @@ T_WIDTHS = [2, 16, 128, 130]
 @pytest.mark.parametrize("block", T_BLOCKS)
 @pytest.mark.parametrize("d", T_WIDTHS)
 def test_transposed_spmm_kernel(dev, dtype, fill, block, d):
-    """N1 against its plain version at block fills 0 to 100 %, with an
-    all-padding block-row (padded slots) and an empty block column, blocks
-    whose bytes are not a multiple of 16 (copied by the producer's lanes),
-    D = 2 (the lanes of a group split the rows), 16, 128 and 130 (two
-    D-tiles), f32 / bf16 / f16; two launches equal bit for bit, the empty
-    block column exactly 0."""
-    bm, bn = block
-    a = _sparse(d + bm + bn, 301, 277, fill)
-    if fill == 1.0:
-        a[a == 0] = 1.0
-    a[bm:2 * bm] = 0.0
-    a[:, bn:2 * bn] = 0.0
-    ell = BlockELL.from_dense(a, bm, bn, device=dev)
-    col_ptr, col_slots = blockell_columns(ell)
-    gen = torch.Generator(device=dev).manual_seed(d)
-    h = torch.randn(ell.shape[0], d, device=dev, generator=gen).to(dtype)
-    ops = (col_ptr, col_slots, ell.blocks.to(dtype), h)
+    """N1 on the path its rule picks, against its plain version at block
+    fills 0 to 100 %, with an all-padding block-row (padded slots) and an
+    empty block column, blocks whose bytes are not a multiple of 16
+    (copied by the producer's lanes), D = 1 to 8 (the stream path), 16,
+    128, 130 (two D-tiles) and 2048, f32 / bf16 / f16; two launches equal
+    bit for bit, the empty block column exactly 0."""
+    bn = block[1]
+    ops = _transposed_operands(dev, dtype, fill, block, d)
     before = spmm_blockell_t_kernel.launches
     got = spmm_blockell_t_kernel(*ops)
     again = spmm_blockell_t_kernel(*ops)
     assert spmm_blockell_t_kernel.launches == before + 2
-    want = spmm_blockell_t_ref(*ops)
-    assert got.dtype == want.dtype == dtype
     assert torch.equal(got, again)
     assert bool((got[bn:2 * bn] == 0).all())
-    # the plain version's sums over up to nbr * bm terms, in another order
-    mag = spmm_blockell_t_ref(col_ptr, col_slots, ops[2].abs(), h.abs())
-    eps = torch.finfo(torch.float32).eps
-    tol = DTYPE_TOL[dtype]
-    bound = tol["atol"] + tol["rtol"] * want.float().abs() \
-        + 2 * eps * ell.shape[0] ** 0.5 * mag.float()
-    worst = float(((got.float() - want.float()).abs() / bound).max())
-    assert worst <= 1, f"an element is {worst:.2f}x its tolerance"
+    _assert_transposed_close(got, ops)
+
+
+@pytest.mark.parametrize("path", ["sparse", "tensor", "stream"])
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW)
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("d", T_WIDTHS)
+def test_transposed_spmm_each_path(dev, path, dtype, fill, d):
+    """Each of N1's paths forced on 64 x 64 blocks (which all three take;
+    the stream path only up to D = 8) at every fill, width and dtype:
+    held to the plain version, two launches equal bit for bit, the empty
+    block column 0, and the rule's launch equal bit for bit to the same
+    path forced where the rule picks it."""
+    from repro_torch.kernels.spmm.transposed import n1_plan
+
+    if path == "stream" and d > 8:
+        pytest.skip("the stream path takes D <= 8")
+    ops = _transposed_operands(dev, dtype, fill, (64, 64), d)
+    got = spmm_blockell_t_kernel(*ops, path=path)
+    assert torch.equal(got, spmm_blockell_t_kernel(*ops, path=path))
+    assert bool((got[64:128] == 0).all())
+    _assert_transposed_close(got, ops)
+    nbr, nbc = ops[2].shape[0], ops[0].shape[0] - 1
+    if n1_plan(d, dtype, (64, 64), nbr, nbc)[0] == path:
+        assert torch.equal(got, spmm_blockell_t_kernel(*ops))
+
+
+def _lm_weight_ell(dev, key):
+    """A pruned gemma3-4b MLP weight's Block-ELL (``wi`` 2560 x 10240,
+    ``wo`` 10240 x 2560): 10 % of its 64 x 64 tiles kept whole."""
+    m, n = {"wi": (2560, 10240), "wo": (10240, 2560)}[key]
+    rng = np.random.default_rng(len(key) + m)
+    keep = np.kron(rng.random((m // 64, n // 64)) < 0.1,
+                   np.ones((64, 64), np.float32))
+    w = rng.standard_normal((m, n)).astype(np.float32) * 0.02 * keep
+    return BlockELL.from_dense(w, 64, 64, device=dev)
+
+
+@pytest.mark.parametrize("key", ["wi", "wo"])
+@pytest.mark.parametrize("d", [4, 8, 2048])
+def test_transposed_spmm_at_lm_weight_shapes(dev, key, d):
+    """N1 at the pruned LM's shapes (x @ W runs Wᵀ xᵀ on W's blocks) and
+    widths (decode D = B, prefill D = B S), f32: every path that takes D
+    held to the plain version, two launches equal, the rule's launch
+    equal to its path's."""
+    from repro_torch.kernels.spmm.transposed import n1_plan
+
+    ell = _lm_weight_ell(dev, key)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    ops = (*blockell_columns(ell), ell.blocks,
+           torch.randn(ell.shape[0], d, device=dev, generator=gen))
+    outs = {}
+    for path in (["stream"] if d <= 8 else []) + ["tensor", "sparse"]:
+        got = spmm_blockell_t_kernel(*ops, path=path)
+        assert torch.equal(got, spmm_blockell_t_kernel(*ops, path=path))
+        _assert_transposed_close(got, ops)
+        outs[path] = got
+    nbr, nbc = ell.indices.shape[0], ops[0].shape[0] - 1
+    rule = n1_plan(d, torch.float32, (64, 64), nbr, nbc)[0]
+    assert rule == ("stream" if d <= 8 else "tensor")
+    assert torch.equal(spmm_blockell_t_kernel(*ops), outs[rule])
 
 
 @pytest.mark.parametrize("d", [2, 16, 128])
@@ -1662,6 +1740,101 @@ def test_csr_element_route_sums_in_a_fixed_order(dev):
                                paths.spmm_elements(*cpu, h.cpu(), n), **TOL)
     torch.testing.assert_close(y.cpu(),
                                paths.spmv_elements(*cpu, v.cpu(), n), **TOL)
+
+
+def _gat_inputs(dev, n=600, d=32, seed=80):
+    rng = np.random.default_rng(seed)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).requires_grad_(True)
+
+    return _sparse(seed, n, n, 0.05), leaf(n, 2), leaf(n, 2), leaf(n, d)
+
+
+def test_csr_attention_request_sums_in_a_fixed_order(dev):
+    """A fused GAT aggregation planned csr (``fused_attn_elements``: the
+    softmax denominators in ``row_order``) twice: equal bits, and within
+    tolerance of the CPU."""
+    dense, q, k, v = _gat_inputs(dev)
+    a = SparseMatrix.from_dense(dense, formats=("csr",), device=dev)
+    with torch.no_grad():
+        first = fused_graph_attention(a, q, k, v, policy="csr")
+        assert torch.equal(first, fused_graph_attention(a, q, k, v,
+                                                        policy="csr"))
+        cpu = SparseMatrix.from_dense(dense, formats=("csr",), device="cpu")
+        want = fused_graph_attention(cpu, q.cpu(), k.cpu(), v.cpu(),
+                                     policy="csr")
+    torch.testing.assert_close(first.cpu(), want, **TOL)
+
+
+def test_unfused_gat_request_sums_in_a_fixed_order(dev):
+    """A ``fuse=False`` GAT request (``_segment_softmax`` over the csr
+    pattern) twice on the card: equal bits, within tolerance of the
+    CPU."""
+    from repro_torch.models.gnn import gat_forward
+
+    rng = np.random.default_rng(81)
+    adj = (rng.random((N_GAT, N_GAT)) < 0.05).astype(np.float32)
+    params = init_gat(SMOKE_CONFIG, seed=0, device="cpu")
+    x = torch.from_numpy(rng.standard_normal(
+        (N_GAT, SMOKE_CONFIG.in_features)).astype(np.float32))
+    on = {k: [t.to(dev) for t in v] for k, v in params.items()}
+    graph = build_graph(adj, SMOKE_CONFIG, device=dev)
+    with torch.no_grad():
+        first = gat_forward(on, graph, x.to(dev), fuse=False)
+        assert torch.equal(first, gat_forward(on, graph, x.to(dev),
+                                              fuse=False))
+        want = gat_forward(params, build_graph(adj, SMOKE_CONFIG,
+                                               device="cpu"), x, fuse=False)
+    torch.testing.assert_close(first.cpu(), want, **TOL)
+
+
+N_GAT = 500
+
+
+@pytest.mark.parametrize("fmt,policy", [("csr", "csr"), ("coo", "ell")])
+def test_gat_backward_planned_csr_or_coo_sums_in_a_fixed_order(dev, fmt,
+                                                                policy):
+    """The fused attention's backward on a matrix carrying only a csr (or
+    only a coo) form: the row softmax's denominators in ``row_order``
+    (``_form_row_softmax``'s csr and coo branches; on coo also dV through
+    the Block-COO transpose, ``spmm_coo``); the gradients of two runs
+    equal per ``torch.equal``, within tolerance of the CPU's."""
+    dense, *_ = _gat_inputs(dev)
+
+    def grads(device):
+        _, q, k, v = _gat_inputs(device)
+        a = SparseMatrix.from_dense(dense, formats=(fmt,), block=(64, 64),
+                                    device=device)
+        y = fused_graph_attention(a, q, k, v, policy=policy)
+        w = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+        (torch.tanh(y) * w).sum().backward()
+        return [t.grad for t in (q, k, v)]
+
+    first, second = grads(dev), grads(dev)
+    for i, (g, h) in enumerate(zip(first, second)):
+        assert torch.equal(g, h), f"{fmt}: gradient {i}"
+    for g, w in zip(first, grads("cpu")):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+def test_blockcoo_transpose_sums_in_a_fixed_order(dev):
+    """``Aᵀ @ H`` with A carrying only a Block-COO form (``spmm_coo`` over
+    the transposed Block-COO view, its blocks in ``row_order``): two runs
+    equal per ``torch.equal``, within tolerance of the CPU."""
+    dense = _sparse(82, 700, 500, 0.05)
+    h = torch.randn(700, 48, device=dev)
+    a = SparseMatrix.from_dense(dense, formats=("coo",), block=(64, 64),
+                                device=dev)
+    first = matmul(a.T, h, policy="ell")
+    assert torch.equal(first, matmul(a.T, h, policy="ell"))
+    cpu = SparseMatrix.from_dense(dense, formats=("coo",), block=(64, 64),
+                                  device="cpu")
+    torch.testing.assert_close(first.cpu(),
+                               matmul(cpu.T, h.cpu(), policy="ell"), **TOL)
+    torch.testing.assert_close(first.cpu(), torch.from_numpy(dense).T
+                               @ h.cpu(), **TOL)
 
 
 def _fleet_requests(seed, sizes, d=8):

@@ -115,6 +115,47 @@ def test_load_time_cast_is_the_same_bits(arch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("pruned", [False, True], ids=["dense", "pruned"])
+def test_engine_holds_one_cast_tree(pruned):
+    """bf16: ``ServingEngine.params`` is the one tree the engine holds, cast
+    once (f32 leaves and sparse weights the given objects); the f32 leaves
+    it cast are freed with the caller's tree; greedy tokens equal a loop
+    over ``prefill`` / ``decode_step`` on the f32 tree cast at each use."""
+    import gc
+    import weakref
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-4b"),
+                              dtype="bfloat16")
+    params = T.init_lm(cfg, seed=0, device="cpu")
+    if pruned:
+        params = P.sparsify_lm(params, cfg, **PRUNE)
+    prompts = _prompts(cfg)
+    toks = torch.from_numpy(prompts)
+    logits, cache = T.prefill(params, cfg, toks, 40)
+    want = [torch.argmax(logits, -1).to(torch.int32)]
+    for _ in range(7):
+        logits, cache = T.decode_step(params, cfg, want[-1][:, None], cache)
+        want.append(torch.argmax(logits, -1).to(torch.int32))
+    want = torch.stack(want, 1).numpy()
+
+    eng = E.ServingEngine(params, cfg, E.ServeConfig(max_len=40))
+    given = {id(leaf): path for path, leaf in _leaves(params)}
+    kept = 0
+    for path, leaf in _leaves(eng.params):
+        f32 = path[-1] in T._F32_LEAVES
+        assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16), path
+        assert (id(leaf) in given) == f32, path
+        kept += f32
+    assert kept and not any(isinstance(v, (dict, list, tuple))
+                            for k, v in vars(eng).items() if k != "params")
+    cast_away = [weakref.ref(leaf) for path, leaf in _leaves(params)
+                 if path[-1] not in T._F32_LEAVES]
+    del params, leaf
+    gc.collect()
+    assert cast_away and all(r() is None for r in cast_away)
+    assert np.array_equal(eng.generate(prompts, 8), want)
+
+
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():

@@ -75,6 +75,26 @@ def test_plans_equal_reference(prune_block, want):
     assert got == ref == {8: want, 512: want}
 
 
+@pytest.mark.parametrize("d", [8, 512])
+def test_dense_planned_weight_promotes_bf16_activations(d):
+    """``x @ W`` with bf16 activations on an f32 weight pruned at (8, 8)
+    tiles, which plans dense: the product is taken in f32, the common type,
+    as ``jnp.matmul`` takes the reference's, and held to the reference."""
+    rng = np.random.default_rng(2)
+    w = (rng.normal(size=(256, 1024)) / 16).astype(np.float32)
+    x = rng.normal(size=(d, 256)).astype(np.float32)
+    kw = dict(sparsity=0.9, prune_block=(8, 8), formats=("ell", "csr"),
+              format="auto", block=(64, 64))
+    wp = P._to_sparse(torch.from_numpy(w), **kw)
+    assert _weight_plans(lambda _: wp, plan_spmm, available_paths, w)[d] \
+        == "dense"
+    got = torch.from_numpy(x).bfloat16() @ wp
+    want = np.asarray(jnp.asarray(x, jnp.bfloat16)
+                      @ JP._to_sparse(jnp.asarray(w), **kw))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
 def _pruned_models(arch="gemma3-4b"):
     jcfg, cfg = LP.cfgs(arch)
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)

@@ -174,6 +174,127 @@ def test_plain_version_sums_each_block_column_in_list_order():
 
 
 # ---------------------------------------------------------------------------
+# N1's paths: the rule and the stream path's chunks
+# ---------------------------------------------------------------------------
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("d,dtype,block,nbr,nbc,want", [
+    (4, F32, (64, 64), 160, 40, ("stream", 4)),     # the LM's wo, decode
+    (8, F32, (64, 64), 40, 160, ("stream", 1)),     # the LM's wi, decode
+    (1, F32, (64, 64), 256, 256, ("stream", 1)),    # graph (a), SpMV's dx
+    (2, BF16, (64, 64), 256, 100, ("stream", 2)),
+    (8, F16, (48, 30), 3, 3, ("stream", 3)),        # at most nbr chunks
+    (1, F32, (16, 16), 1, 1, ("stream", 1)),
+    (5, F32, (8, 12), 40, 7, ("stream", 19)),
+    (16, F32, (64, 64), 256, 256, ("sparse", 1)),   # mid D: FFMA wins
+    (63, BF16, (64, 64), 256, 256, ("sparse", 1)),
+    (64, F32, (64, 64), 256, 256, ("tensor", 1)),
+    (128, F32, (64, 64), 256, 256, ("tensor", 1)),  # graph (a), dH
+    (16384, F32, (64, 64), 40, 160, ("tensor", 1)),  # the LM's prefill
+    (130, BF16, (32, 64), 9, 9, ("tensor", 1)),
+    (2048, F16, (128, 64), 2, 2, ("tensor", 1)),
+    (128, F32, (48, 30), 16, 16, ("sparse", 1)),    # bn not 64
+    (128, F32, (8, 64), 16, 16, ("sparse", 1)),     # bm not 16k
+    (9, F32, (64, 128), 16, 16, ("sparse", 1)),
+])
+def test_n1_plan_is_a_rule_on_width_dtype_block_and_shape(d, dtype, block,
+                                                          nbr, nbc, want):
+    """The path and chunks come from (D, dtype, block, nbr, nbc) alone:
+    the same arguments give the same plan, and the stream path takes
+    enough chunks for ``STREAM_CTAS`` CTAs, at most one a block-row."""
+    got = transposed.n1_plan(d, dtype, block, nbr, nbc)
+    assert got == want == transposed.n1_plan(d, dtype, block, nbr, nbc)
+    if got[0] == "stream":
+        assert got[1] == transposed.stream_chunks(nbr, nbc)
+        assert got[1] * nbc >= min(transposed.STREAM_CTAS, nbr * nbc)
+
+
+def _chunk_bounds(col_ptr, chunks):
+    """(starts, ends) int64 [nbc * chunks]: entry ``j * chunks + q`` is the
+    run of block column j's list that the stream path's CTA j * chunks + q
+    sums, ``len * q // chunks`` .. ``len * (q + 1) // chunks`` past the
+    list's start: the kernel's ``e0`` / ``e1``
+    (``csrc/spmm_blockell_t.cu``, the stream kernel), written out here so
+    that its split and its combine order can be checked on the CPU."""
+    beg = col_ptr[:-1].long()[:, None]
+    length = col_ptr[1:].long()[:, None] - beg
+    q = torch.arange(chunks + 1)[None, :]
+    edges = beg + length * q // chunks
+    return edges[:, :-1].reshape(-1), edges[:, 1:].reshape(-1)
+
+
+def _chunked_lists(ell, chunks):
+    col_ptr, col_slots = transposed.blockell_columns(ell)
+    starts, ends = _chunk_bounds(col_ptr, chunks)
+    return col_ptr, col_slots, starts, ends
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("shape,block", SHAPES, ids=str)
+def test_stream_chunks_cover_each_list_in_order(shape, block, chunks):
+    """A column's runs are consecutive, start at its list's start, end at
+    its end and differ in length by at most one entry (the empty column's
+    runs are all empty)."""
+    ell = BlockELL.from_dense(_dense(21, shape, 0.5, block), *block,
+                              device="cpu")
+    col_ptr, _, starts, ends = _chunked_lists(ell, chunks)
+    nbc = col_ptr.shape[0] - 1
+    assert starts.shape == ends.shape == (nbc * chunks,)
+    s, e = starts.reshape(nbc, chunks), ends.reshape(nbc, chunks)
+    assert torch.equal(s[:, 0], col_ptr[:-1].long())
+    assert torch.equal(e[:, -1], col_ptr[1:].long())
+    assert torch.equal(s[:, 1:], e[:, :-1])
+    sizes = e - s
+    assert int((sizes.max(1).values - sizes.min(1).values).max()) <= 1
+    assert not sizes[1].any()  # the empty block column
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("shape,block", SHAPES, ids=str)
+def test_stream_chunks_added_in_chunk_order_match_reference(shape, block,
+                                                            chunks):
+    """The stream path's arithmetic on the CPU: each run's f32 partial (the
+    plain version over the runs as lists of their own), then each column's
+    partials added in chunk order, held to the reference's route."""
+    a = _dense(22, shape, 0.9, block)
+    ell = BlockELL.from_dense(a, *block, device="cpu")
+    col_ptr, col_slots, starts, ends = _chunked_lists(ell, chunks)
+    run_ptr = torch.cat([starts, ends[-1:]]).to(torch.int32)
+    h = _h(23, ell.shape[0])
+    parts = spmm_blockell_t_ref(run_ptr, col_slots, ell.blocks,
+                                torch.from_numpy(h))
+    nbc = col_ptr.shape[0] - 1
+    parts = parts.reshape(nbc, chunks, block[1], D)
+    got = parts[:, 0].clone()
+    for q in range(1, chunks):
+        got += parts[:, q]
+    got = got.reshape(nbc * block[1], D)
+    np.testing.assert_allclose(got.numpy(), _j_ell_t(
+        JBlockELL.from_dense(a, *block), h), **TOL)
+    if chunks == 1:
+        assert torch.equal(got, spmm_blockell_t_ref(col_ptr, col_slots,
+                                                    ell.blocks,
+                                                    torch.from_numpy(h)))
+
+
+@pytest.mark.parametrize("path", transposed.N1_PATHS)
+def test_forced_path_runs_the_plain_version_on_the_cpu(path):
+    """A CPU tensor takes the plain version whatever path is asked; an
+    unknown path is refused."""
+    block = (16, 16)
+    ell = BlockELL.from_dense(_dense(24, (100, 70), 0.5, block), *block,
+                              device="cpu")
+    ops = (*transposed.blockell_columns(ell), ell.blocks,
+           torch.from_numpy(_h(25, ell.shape[0])))
+    assert torch.equal(transposed.spmm_blockell_t_kernel(*ops, path=path),
+                       spmm_blockell_t_ref(*ops))
+    with pytest.raises(ValueError):
+        transposed.spmm_blockell_t_kernel(*ops, path="dense")
+
+
+# ---------------------------------------------------------------------------
 # The per-structure lists
 # ---------------------------------------------------------------------------
 
