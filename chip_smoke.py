@@ -275,10 +275,45 @@ Phases, each of which must pass or the script exits non-zero:
             capacity_factor = n_experts (no drops) and at its own
             capacity (drops; held to the CPU only).
      The main path's N1 launches join the kernel rows'.
- 10. A JSON line of the backward shapes, one of the serving shapes (phase
+ 10. The LM training step (``repro_torch.train.loop``), after phase 9:
+       (10a) gemma3-4b's ``CONFIG`` at full width and depth (34 layers,
+            3,879,907,840 parameters) with f32 master params (TF32 off)
+            and AdamW written in place, B = 1, S = 4096 from
+            ``make_lm_batch``: run twice from the same init and batch
+            (the first run's loss, gradients and updated params and
+            moments kept on the host), every one equal per
+            ``torch.equal``; then ``LM_TRAIN_STEPS`` steps through
+            ``make_train_step`` (median on the host clock with a sync,
+            tokens/s, peak memory), one profiled (device busy) and a
+            ``cast_params_once`` bf16-compute step from the masters;
+       (10b) ``remat_policy="dots"`` beside ``"nothing"`` on a
+            ``LM_TRAIN_REMAT_LAYERS``-layer cut at full width (the saved
+            products of 34 layers do not fit beside the 62 GB of state):
+            the same loss and gradients, each step's time and peak;
+       (10c) layers 0-5 (local and global) at full width, B = 1, S = 128:
+            the loss and every gradient against the same cut on the CPU
+            within ``LM_TRAIN_RTOL`` x max|want|;
+       (10d) ``train_loop`` at gemma3's SMOKE_CONFIG with a chaos death
+            and async checkpoints in a temporary directory (removed):
+            one recovery, params and state equal per ``torch.equal`` to
+            the undisturbed run.
+     Its budget, ``PHASE10_BUDGET_S``, is printed beside its wall.
+ 11. The mesh at world size 1: a one-rank NCCL group on a ``FileStore``
+     (destroyed after), ``make_mesh`` meshes of 1 x 1 (and 1 x 1 x 1, 1):
+     ``spmm_1p5d`` / ``spmm_2d`` / ``spmm_2p5d`` on graph (a) at D =
+     ``MESH_D``, each K1 x1 (counted; its main-path launches join K1's
+     row), equal per ``torch.equal`` to ``spmm_blockell`` and held to the
+     dense f32 oracle, timed beside K1 alone; ``allgather_matmul_overlap``
+     against ``x @ w``; ``pipeline_apply`` with one stage, the MoE's
+     expert-parallel branch on 1 x 1 (llama4-scout SMOKE_CONFIG, f32) and
+     one sharded train step (gemma3 SMOKE_CONFIG), each equal per
+     ``torch.equal`` to the unsharded computation.  Budget
+     ``PHASE11_BUDGET_S``.
+ 12. A JSON line of the backward shapes, one of the serving shapes (phase
      6's kernel rows and runs), one of phase 7, one of phase 8 (the
-     fleet), one of phase 9 (``lm``), a JSON line of the kernels, the
-     script's wall time, the card line, and the final JSON line.
+     fleet), one of phase 9 (``lm``), one of phase 10 (``lm_train``), one
+     of phase 11 (``mesh``), a JSON line of the kernels, the script's
+     wall time, the card line, and the final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -503,6 +538,28 @@ LM_SMOKE_DECODE = 8
 LM_SMOKE_RTOL = 1e-4
 
 
+# phase 10: gemma3-4b's AdamW step (f32 masters) at full width and depth:
+# (batch, prompt), steps timed after the two held runs; the depth cut of the
+# "dots" step beside "nothing" (the products it saves over 34 layers, about
+# 0.7 GB a layer at S = 4096 in f32, do not fit beside the 62 GB of params,
+# gradients and moments); the cut held to the CPU (layers 0-5: five local
+# layers and the global one; batch, prompt); the train_loop chaos run at
+# SMOKE_CONFIG (steps, the step a death hits, checkpoint interval, batch,
+# prompt)
+LM_TRAIN = (1, 4096)
+LM_TRAIN_STEPS = 3
+LM_TRAIN_REMAT_LAYERS = 12
+LM_TRAIN_CPU_CUT = (6, 1, 128)
+LM_TRAIN_CHAOS = (6, 5, 2, 2, 128)
+# gradients on the card against the CPU: |got - want| <= 1e-4 * max|want|
+# per leaf (f32 sums in other orders over six layers, TF32 off)
+LM_TRAIN_RTOL = 1e-4
+PHASE10_BUDGET_S = 150.0
+# phase 11: the mesh at world size 1 (one NCCL rank), graph (a) at D = 128
+MESH_D = 128
+PHASE11_BUDGET_S = 30.0
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -550,6 +607,17 @@ class Port:
         from repro_torch.train import gnn as train
         from repro_torch import batch
         from repro_torch.serve import fleet, runtime
+        from repro_torch.core import distributed
+        from repro_torch.data import pipeline as data
+        from repro_torch.ft import checkpoint
+        from repro_torch.kernels.spmm import ops as spmm_ops
+        from repro_torch.resilience import chaos
+        from repro_torch.sharding import ctx as shard_ctx
+        from repro_torch.sharding import specs as shard_specs
+        from repro_torch.sharding import step as shard_step
+        from repro_torch.train import loop as lm_train
+        from repro_torch.train import optimizer as lm_opt
+        from repro_torch.train import pipeline as gpipe
 
         self.cfg = paper_gnn.CONFIG
         self.GNNConfig = paper_gnn.GNNConfig
@@ -575,6 +643,13 @@ class Port:
         self.dispatch, self.autotune, self.forms = dispatch, autotune, _forms
         self.autodiff, self.matrix = autodiff, matrix
         self.transposed, self.obs = transposed, obs
+        self.distributed, self.data, self.checkpoint = distributed, data, \
+            checkpoint
+        self.spmm_blockell = spmm_ops.spmm_blockell
+        self.chaos, self.gpipe = chaos, gpipe
+        self.shard_ctx, self.shard_specs, self.shard_step = \
+            shard_ctx, shard_specs, shard_step
+        self.lm_train, self.lm_opt = lm_train, lm_opt
         self.wrappers = {
             "K1": kernel.spmm_blockell_kernel,
             "K2": sell.spmm_sell_kernel,
@@ -2910,8 +2985,8 @@ def long_rows(torch, np, port, rng):
     s = S_LONG
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (n, s, d), dtype=np.float32)).to(dev) for n in (h, hkv, hkv))
-    ell, val = (torch.from_numpy(a).to(dev)
-                for a in port.bsattn.banded_ell(s, blk, blk, 0))
+    ell_np, val_np = port.bsattn.banded_ell(s, blk, blk, 0)
+    ell, val = (torch.from_numpy(a).to(dev) for a in (ell_np, val_np))
     torch.cuda.synchronize()
     port.reset_counts()
     out = port.bsattn.block_sparse_flash_attention(
@@ -2936,9 +3011,24 @@ def long_rows(torch, np, port, rng):
     ms = time_ms(torch, lambda: port.wrappers["K9"](
         ell, val, q, k, v, block_q=blk, block_kv=blk, causal=True,
         window=0))
+    # the bound as phase 4's f32 rows count it: three TF32 products per
+    # product over the live pairs, against the bytes of q, k, v, the
+    # output and the ELL arrays
+    flops = 4 * d * live_pairs(np, ell_np, val_np, blk, blk, 0) * h
+    nbytes = (2 * h + 2 * hkv) * s * d * 4 + 2 * ell.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    from torch.nn.attention import SDPBackend
+
+    del want
+    lib_ms, lib = time_sdpa(torch, q, k, v, dict(is_causal=True), out,
+                            [SDPBackend.FLASH_ATTENTION,
+                             SDPBackend.EFFICIENT_ATTENTION,
+                             SDPBackend.CUDNN_ATTENTION])
     log(f"K9 [(iii) S={s} window=0 H={h} Hkv={hkv} D={d} float32]: kernel "
-        f"{ms:.4f} ms, launches {counts}")
-    del q, k, v, out, want
+        f"{ms:.4f} ms, launches {counts} | SDPA {lib} | bound {bound_ms:.4f} "
+        f"ms ({bound_by}: {nbytes / 1e9:.3f} GB, {3 * flops / 1e9:.1f} GFLOP "
+        f"at {PEAK_TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    del q, k, v, out
     torch.cuda.empty_cache()
 
 
@@ -4498,6 +4588,440 @@ def lm_phase(torch, np, port):
     return summary, n1
 
 
+def lm_train_tcfg(port, **kw):
+    return port.lm_train.TrainConfig(opt=port.lm_opt.OptConfig(
+        lr=1e-4, warmup_steps=0, total_steps=100), **kw)
+
+
+def lm_train_run(torch, port, cfg, tcfg, params, state, batch):
+    """One train step as ``make_train_step`` composes it (the gradients,
+    then the compression and AdamW in place), returning the gradients
+    too: (loss, grads, params, state)."""
+    loss, grads = port.lm_train.make_grad_fn(cfg, tcfg)(params, batch)
+    params, state, _ = port.lm_train.apply_gradients(params, state, grads,
+                                                     tcfg)
+    torch.cuda.synchronize()
+    return loss, grads, params, state
+
+
+def same_bits_leafwise(torch, port, what, got, host):
+    """Each device leaf equal, per ``torch.equal``, to its host copy
+    (brought back to the leaf's device, one leaf at a time)."""
+    leaves = port.lm.tree_leaves(got)
+    if len(leaves) != len(host):
+        raise AssertionError(f"{what}: {len(leaves)} leaves against "
+                             f"{len(host)}")
+    for i, (g, h) in enumerate(zip(leaves, host)):
+        g = port.shard_specs.whole(g)  # a DTensor: gathered whole
+        if not torch.equal(g, h.to(g.device)):
+            raise AssertionError(f"{what}: leaf {i} differs between two "
+                                 "runs from the same init and batch")
+
+
+def timed_steps(torch, step, params, state, batches):
+    """Host-clock seconds of each step (ending in a sync)."""
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise AssertionError(f"a train step's loss is {loss}")
+    return params, state, times
+
+
+def lm_train_full(torch, np, port, out):
+    """10a: the full model, run twice from one init (equal bits), then
+    timed, profiled and stepped in bf16 compute from f32 masters."""
+    cfg = dataclasses.replace(port.lm_cfg, dtype="float32")
+    b, s = LM_TRAIN
+    tcfg = lm_train_tcfg(port)
+    dcfg = port.data.DataConfig(seed=SEED)
+    batches = [port.data.make_lm_batch(cfg, s, b, i, dcfg, device=DEVICE)
+               for i in range(LM_TRAIN_STEPS + 4)]
+
+    def fresh():
+        params = port.lm.init_lm(cfg, seed=SEED, device=DEVICE)
+        return params, port.lm_train.init_train_state(params, tcfg)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = fresh()
+    n_params = sum(x.numel() for x in port.lm.tree_leaves(params))
+    t0 = time.perf_counter()
+    loss, grads, params, state = lm_train_run(torch, port, cfg, tcfg, params,
+                                              state, batches[0])
+    first_s = time.perf_counter() - t0
+    first_peak = peak_gib(torch)
+    log(f"10a gemma3-4b CONFIG f32 masters, {cfg.n_layers} layers (no depth "
+        f"cut), {n_params} parameters, AdamW, B={b} S={s}: first step "
+        f"{first_s:.2f} s, loss {float(loss):.6f}, peak {first_peak:.2f} GiB "
+        f"(params, gradients and two moments {16 * n_params / 2**30:.2f} GiB)")
+    host_loss = loss.cpu()
+    host_grads = [g.cpu() for g in port.lm.tree_leaves(grads)]
+    del grads
+    host_leaves = [x.cpu() for x in port.lm.tree_leaves((params, state))]
+    del params, state, loss
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, state = fresh()
+    loss, grads, params, state = lm_train_run(torch, port, cfg, tcfg, params,
+                                              state, batches[0])
+    if not torch.equal(loss.cpu(), host_loss):
+        raise AssertionError(f"10a: loss {float(loss)} on the second run, "
+                             f"{float(host_loss)} on the first")
+    same_bits_leafwise(torch, port, "10a gradients", grads, host_grads)
+    del grads, host_grads
+    same_bits_leafwise(torch, port, "10a updated params and moments",
+                       (params, state), host_leaves)
+    del host_leaves
+    log(f"10a the same init and batch twice: the loss, all "
+        f"{len(port.lm.tree_leaves(params))} gradients and every updated "
+        "param and "
+        f"moment equal per torch.equal ({time.perf_counter() - t0:.1f} s "
+        "with the host copies)")
+
+    step = port.lm_train.make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, times = timed_steps(torch, step, params, state,
+                                       batches[1:1 + LM_TRAIN_STEPS])
+    peak = peak_gib(torch)
+    med = statistics.median(times)
+    tokens = b * s
+    log(f"10a step (make_train_step, host clock with a sync): median "
+        f"{med * 1e3:.1f} ms of {LM_TRAIN_STEPS} "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in times)}), {tokens / med:.0f} "
+        f"tokens/s, peak {peak:.2f} GiB")
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batches[1 + LM_TRAIN_STEPS]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = log_device_time(prof, wall, "10a one step")
+    del prof
+    out["full"] = {"layers": cfg.n_layers, "params": n_params, "batch": b,
+                   "prompt": s, "first_step_s": first_s,
+                   "step_ms": [t * 1e3 for t in times],
+                   "step_ms_median": med * 1e3, "tokens_per_s": tokens / med,
+                   "peak_gib": peak, "first_peak_gib": first_peak,
+                   "profiled_wall_ms": wall, "device_busy_ms": busy,
+                   "busy_share": None if busy is None else busy / wall}
+
+    # bf16 compute from the f32 masters (the config's dtype), cast once
+    tcfg16 = lm_train_tcfg(port, cast_params_once=True,
+                           compute_dtype="bfloat16")
+    step16 = port.lm_train.make_train_step(port.lm_cfg, tcfg16)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, times16 = timed_steps(
+        torch, step16, params, state, batches[2 + LM_TRAIN_STEPS:])
+    peak16 = peak_gib(torch)
+    log(f"10a cast_params_once bf16-compute step from the f32 masters: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times16)} ms (the first "
+        f"warms up), peak {peak16:.2f} GiB")
+    out["bf16_cast_once"] = {"step_ms": [t * 1e3 for t in times16],
+                             "peak_gib": peak16}
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+
+def lm_train_remat(torch, np, port, out):
+    """10b: ``remat_policy="dots"`` beside ``"nothing"`` on a depth cut at
+    full width: the same loss and gradients, each policy's step time and
+    peak memory."""
+    layers = LM_TRAIN_REMAT_LAYERS
+    cfg = dataclasses.replace(port.lm_cfg, dtype="float32", n_layers=layers)
+    b, s = LM_TRAIN
+    batches = [port.data.make_lm_batch(cfg, s, b, i, port.data.DataConfig(
+        seed=SEED), device=DEVICE) for i in range(3)]  # the first warms up
+    params = port.lm.init_lm(cfg, seed=SEED, device=DEVICE)
+    grads = {}
+    for policy in ("nothing", "dots"):
+        tcfg = lm_train_tcfg(port, remat_policy=policy)
+        grads[policy] = port.lm_train.make_grad_fn(cfg, tcfg)(params,
+                                                              batches[0])
+    (l0, g0), (l1, g1) = grads["nothing"], grads["dots"]
+    equal = torch.equal(l0, l1) and all(
+        torch.equal(a, c) for a, c in zip(port.lm.tree_leaves(g0),
+                                          port.lm.tree_leaves(g1)))
+    worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for a, c in zip(port.lm.tree_leaves(g1),
+                                port.lm.tree_leaves(g0)))
+    if worst > LM_TRAIN_RTOL:
+        raise AssertionError(f"10b: dots' gradients {worst:.3e} x max|want| "
+                             "from nothing's")
+    del grads, g0, g1, params
+    torch.cuda.empty_cache()
+    rows = {}
+    for policy in ("nothing", "dots"):
+        tcfg = lm_train_tcfg(port, remat_policy=policy)
+        params = port.lm.init_lm(cfg, seed=SEED, device=DEVICE)
+        state = port.lm_train.init_train_state(params, tcfg)
+        step = port.lm_train.make_train_step(cfg, tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, state, times = timed_steps(torch, step, params, state,
+                                           batches)
+        rows[policy] = {"step_ms": [t * 1e3 for t in times],
+                        "step_ms_median": statistics.median(times[1:]) * 1e3,
+                        "peak_gib": peak_gib(torch)}
+        del params, state, step
+        torch.cuda.empty_cache()
+    log(f"10b remat on a {layers}-layer cut at full width (B={b} S={s}, f32): "
+        f"nothing {rows['nothing']['step_ms_median']:.1f} ms, peak "
+        f"{rows['nothing']['peak_gib']:.2f} GiB; dots "
+        f"{rows['dots']['step_ms_median']:.1f} ms, peak "
+        f"{rows['dots']['peak_gib']:.2f} GiB; loss and gradients equal per "
+        f"torch.equal: {equal} (worst {worst:.3e} x max|want|)")
+    out["remat"] = {"layers": layers, "equal_bits": equal,
+                    "worst_rel": worst, **rows}
+
+
+def lm_train_vs_cpu(torch, np, port, out):
+    """10c: layers 0-5 at full width, the loss and every gradient on the
+    card against the same cut on the CPU (TF32 off)."""
+    layers, b, s = LM_TRAIN_CPU_CUT
+    cfg = dataclasses.replace(port.lm_cfg, dtype="float32", n_layers=layers)
+    tcfg = lm_train_tcfg(port)
+    batch = port.data.make_lm_batch(cfg, s, b, 0, port.data.DataConfig(
+        seed=SEED + 1), device="cpu")
+    p_dev = port.lm.init_lm(cfg, seed=SEED, device=DEVICE)
+    p_cpu = port.lm.tree_map(lambda a: a.cpu(), p_dev)
+    t0 = time.perf_counter()
+    loss, grads = port.lm_train.make_grad_fn(cfg, tcfg)(
+        p_dev, {k: v.to(DEVICE) for k, v in batch.items()})
+    want_loss, want = port.lm_train.make_grad_fn(cfg, tcfg)(p_cpu, batch)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(port.lm.tree_leaves(grads),
+                                   port.lm.tree_leaves(want))):
+        err = float((g.cpu() - w).abs().max())
+        tol = LM_TRAIN_RTOL * float(w.abs().max())
+        if err > tol:
+            raise AssertionError(f"10c gradient leaf {i}: {err:.3e} from the "
+                                 f"CPU's (tol {tol:.3e})")
+        worst = max(worst, err / max(float(w.abs().max()), 1e-30))
+    lerr = abs(float(loss) - float(want_loss))
+    if not lerr <= LM_TRAIN_RTOL * abs(float(want_loss)):
+        raise AssertionError(f"10c loss {float(loss)} on the card, "
+                             f"{float(want_loss)} on the CPU")
+    log(f"10c layers 0-{layers - 1} (local and global) at full width, B={b} "
+        f"S={s}: loss {float(loss):.6f} (CPU {float(want_loss):.6f}), every "
+        f"gradient within {worst:.3e} x max|want| of the CPU's (tol "
+        f"{LM_TRAIN_RTOL:g}; {time.perf_counter() - t0:.1f} s)")
+    out["vs_cpu"] = {"layers": layers, "batch": b, "prompt": s,
+                     "loss_abs_err": lerr, "grad_worst_rel": worst}
+
+
+def lm_train_chaos(torch, np, port, out):
+    """10d: ``train_loop`` at gemma3's SMOKE_CONFIG with a chaos death at a
+    step and async checkpoints in a temporary directory: the recovered run
+    equal, per ``torch.equal``, to the undisturbed one."""
+    n_steps, die_at, every, b, s = LM_TRAIN_CHAOS
+    cfg = dataclasses.replace(port.lm_configs.get_smoke_config("gemma3-4b"),
+                              dtype="float32")
+    tcfg = lm_train_tcfg(port)
+    shape = port.lm_configs.ShapeConfig("t", s, b, "train")
+
+    def setup():
+        params = port.lm.init_lm(cfg, seed=SEED, device=DEVICE)
+        return (params, port.lm_train.init_train_state(params, tcfg),
+                port.lm_train.make_train_step(cfg, tcfg))
+
+    def it(start):
+        return port.data.lm_data_iter(cfg, shape, port.data.DataConfig(
+            seed=9), start_step=start, device=DEVICE)
+
+    base = port.lm_train.train_loop(*setup(), it(0), n_steps, log_every=1)
+    plan = port.chaos.FaultPlan([port.chaos.FaultSpec(
+        site="train.step", kind="die", at=die_at)])
+    with tempfile.TemporaryDirectory() as d:
+        ck = port.checkpoint.Checkpointer(d, keep=2, async_save=True)
+        with port.chaos.active(plan):
+            got = port.lm_train.train_loop(
+                *setup(), it(0), n_steps, log_every=1, checkpointer=ck,
+                ckpt_every=every, data_factory=it, max_recoveries=2)
+        ck.wait()
+        saved = ck.all_steps()
+    if got["recoveries"] != 1 or ck.failed_saves:
+        raise AssertionError(f"10d: {got['recoveries']} recoveries, "
+                             f"{ck.failed_saves} failed saves")
+    for what in ("params", "state"):
+        same_bits_leafwise(torch, port, f"10d recovered {what}", got[what],
+                           [x.cpu() for x in
+                            port.lm.tree_leaves(base[what])])
+    log(f"10d train_loop at SMOKE_CONFIG ({n_steps} steps, B={b} S={s}), a "
+        f"chaos death at step {die_at}, async checkpoints every {every} "
+        f"(kept {saved}, the directory removed): 1 recovery, params and "
+        f"state equal per torch.equal to the undisturbed run")
+    out["chaos"] = {"steps": n_steps, "die_at": die_at, "recoveries": 1,
+                    "checkpoints_kept": saved}
+
+
+def lm_train_phase(torch, np, port):
+    """Phase 10: the LM training step at full width."""
+    t0 = time.perf_counter()
+    out = {}
+    lm_train_full(torch, np, port, out)
+    lm_train_remat(torch, np, port, out)
+    lm_train_vs_cpu(torch, np, port, out)
+    lm_train_chaos(torch, np, port, out)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10: wall {out['wall_s']:.1f} s (budget "
+        f"{PHASE10_BUDGET_S:.0f} s)")
+    return out
+
+
+def mesh_checks(torch, np, port, out):
+    """Phase 11's checks on a one-rank mesh; returns K1's launches."""
+    specs, dist_mod = port.shard_specs, port.distributed
+    dev = torch.device(DEVICE)
+    mesh = specs.make_mesh((1, 1), ("data", "model"), device=DEVICE)
+    mesh3 = specs.make_mesh((1, 1, 1), ("pod", "data", "model"),
+                            device=DEVICE)
+    n = N_NODES
+    rng = np.random.default_rng(SEED)
+    adj = (rng.random((n, n), dtype=np.float32) < 0.1).astype(np.float32)
+    a = normalized_dense(np, adj)
+    del adj
+    ell = port.BlockELL.from_dense(a, 64, 64, device=DEVICE)
+    h = torch.as_tensor(rng.standard_normal((n, MESH_D)).astype(np.float32),
+                        device=dev)
+    a_dev = torch.as_tensor(a, device=dev)
+    del a
+    oracle = a_dev @ h
+    del a_dev
+    want = port.spmm_blockell(ell, h)
+    k1_ms = time_ms(torch, lambda: port.spmm_blockell(ell, h))
+    k1 = 0
+    rows = {}
+    for name, fn, m in (("spmm_1p5d", dist_mod.spmm_1p5d, mesh),
+                        ("spmm_2d", dist_mod.spmm_2d, mesh),
+                        ("spmm_2p5d", dist_mod.spmm_2p5d, mesh3)):
+        port.reset_counts()
+        got = fn(ell, h, m).full_tensor()
+        torch.cuda.synchronize()
+        counts = port.counts()
+        if counts != expected(port, {"K1": 1}, 1):
+            raise AssertionError(f"11 {name} launched {counts}")
+        k1 += 1
+        if not torch.equal(got, want):
+            raise AssertionError(f"11 {name}: not spmm_blockell's bits")
+        err = float((got - oracle).abs().max())
+        if err > oracle_tol(oracle):
+            raise AssertionError(f"11 {name}: {err:.3e} from the dense "
+                                 "oracle")
+        ms = time_ms(torch, lambda: fn(ell, h, m))
+        rows[name] = {"ms": ms, "k1_ms": k1_ms, "overhead_ms": ms - k1_ms,
+                      "oracle_err": err}
+        log(f"11 {name} on a one-rank NCCL mesh, graph (a) D={MESH_D}: "
+            f"K1 x1, equal to spmm_blockell per torch.equal, {err:.3e} from "
+            f"the dense f32 oracle (tol {oracle_tol(oracle):.3e}); "
+            f"{ms:.4f} ms against K1 alone {k1_ms:.4f} ms (the collective "
+            f"and the DTensor: {ms - k1_ms:+.4f} ms)")
+    del oracle, want, h, ell
+    torch.cuda.empty_cache()
+
+    x = torch.as_tensor(rng.standard_normal((2048, 4096)).astype(np.float32),
+                        device=dev)
+    w = torch.as_tensor(rng.standard_normal((4096, 2048)).astype(np.float32),
+                        device=dev)
+    got = dist_mod.allgather_matmul_overlap(x, w, mesh,
+                                            axis="model").full_tensor()
+    ref = x @ w
+    err = float((got - ref).abs().max())
+    if err > oracle_tol(ref):
+        raise AssertionError(f"11 allgather_matmul_overlap: {err:.3e}")
+    rows["allgather_matmul_overlap"] = {"equal_bits": torch.equal(got, ref),
+                                        "max_abs_err": err}
+    del x, w, got, ref
+
+    pmesh = specs.make_mesh((1,), ("pod",), device=DEVICE)
+    ws = torch.as_tensor(rng.standard_normal((1, 256, 256)).astype(
+        np.float32) / 16, device=dev)
+    xs = torch.as_tensor(rng.standard_normal((8, 64, 256)).astype(
+        np.float32), device=dev)
+
+    def stage(wt, xt):
+        return torch.tanh(xt @ wt)
+
+    got = port.gpipe.pipeline_apply(stage, ws, xs, pmesh, axis="pod")
+    ref = torch.stack([stage(ws[0], xs[t]) for t in range(xs.shape[0])])
+    if not torch.equal(got, ref):
+        raise AssertionError("11 pipeline_apply with one stage differs from "
+                             "the stage applied to each microbatch")
+
+    cfg = dataclasses.replace(port.lm_configs.get_smoke_config(
+        "llama4-scout-17b-a16e"), dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    p = init_moe(gen, cfg)
+    xm = torch.as_tensor(rng.standard_normal((2, 64, cfg.d_model)).astype(
+        np.float32), device=dev)
+    with port.shard_ctx.use_mesh(mesh):
+        y_ep, aux_ep = moe_ffn(p, xm, cfg)
+    y, aux = moe_ffn(p, xm, cfg)
+    if not (torch.equal(y_ep, y) and torch.equal(aux_ep, aux)):
+        raise AssertionError("11 the MoE's expert-parallel branch on 1 x 1 "
+                             "differs from its local branch")
+
+    scfg = dataclasses.replace(port.lm_configs.get_smoke_config("gemma3-4b"),
+                               dtype="float32")
+    tcfg = lm_train_tcfg(port)
+    batch = port.data.make_lm_batch(scfg, 128, 2, 0, port.data.DataConfig(
+        seed=SEED), device=DEVICE)
+    params = port.lm.init_lm(scfg, seed=SEED, device=DEVICE)
+    state = port.lm_train.init_train_state(params, tcfg)
+    place = port.shard_step.place_tree
+    p_sh, s_sh = place(params, mesh), place(state, mesh)
+    p_sh, s_sh, m_sh = port.shard_step.make_sharded_train_step(
+        scfg, tcfg, mesh)(p_sh, s_sh, batch)
+    params, state, m = port.lm_train.make_train_step(scfg, tcfg)(
+        params, state, batch)
+    torch.cuda.synchronize()
+    if not torch.equal(m_sh["loss"], m["loss"]):
+        raise AssertionError("11 the sharded step's loss differs")
+    same_bits_leafwise(torch, port, "11 the sharded step", (p_sh, s_sh),
+                       [x.cpu() for x in
+                        port.lm.tree_leaves((params, state))])
+    log("11 allgather_matmul_overlap against x @ w "
+        f"({rows['allgather_matmul_overlap']['max_abs_err']:.3e}, equal "
+        f"bits {rows['allgather_matmul_overlap']['equal_bits']}); "
+        "pipeline_apply with one stage, the MoE's expert-parallel branch on "
+        "1 x 1 (llama4-scout SMOKE_CONFIG, f32) and one sharded train step "
+        "(gemma3 SMOKE_CONFIG) each equal per torch.equal to the unsharded "
+        "computation")
+    out.update(rows)
+    return k1
+
+
+def mesh_phase(torch, np, port):
+    """Phase 11: the mesh at world size 1, a one-rank NCCL group on a
+    ``FileStore``, destroyed before the next phase."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(d) / "store"), 1), rank=0, world_size=1)
+        try:
+            k1 = mesh_checks(torch, np, port, out)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["k1_launches"] = k1
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11: wall {out['wall_s']:.1f} s (budget "
+        f"{PHASE11_BUDGET_S:.0f} s); K1 launches on its main path {k1}")
+    return out, k1
+
+
 def main() -> int:
     import torch
 
@@ -4594,6 +5118,9 @@ def main() -> int:
     rows["K1"]["launches"] += fleet_k1
     lm_summary, lm_n1 = lm_phase(torch, np, port)
     rows["N1"]["launches"] += lm_n1
+    lm_train_summary = lm_train_phase(torch, np, port)
+    mesh_summary, mesh_k1 = mesh_phase(torch, np, port)
+    rows["K1"]["launches"] += mesh_k1
 
     kernels = []
     for name in sorted(KERNELS):
@@ -4615,6 +5142,8 @@ def main() -> int:
                      default=str))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"lm": lm_summary}))
+    print(json.dumps({"lm_train": lm_train_summary}))
+    print(json.dumps({"mesh": mesh_summary}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phases 1 "
         f"and 2, the kernel build included, {t_main:.1f} s of it)")

@@ -122,6 +122,21 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
 # ---------------------------------------------------------------------------
 
 
+def _band(blocks, w_blocks: int):
+    """``blocks[:, ell]`` for the banded ELL indices (row i takes blocks
+    i - w_blocks + 1 .. i, those below 0 clipped to block 0), built from
+    shifted slices: its backward sums each block's gradients in one fixed
+    order, where advanced indexing's backward (``index_put_`` with
+    accumulate) adds them with atomics on CUDA."""
+    bsz, nq = blocks.shape[:2]
+    cols = []
+    for w in range(w_blocks):
+        shift = min(w_blocks - 1 - w, nq)
+        pad = blocks[:, :1].expand((bsz, shift) + tuple(blocks.shape[2:]))
+        cols.append(torch.cat([pad, blocks[:, :nq - shift]], dim=1))
+    return torch.stack(cols, dim=2)
+
+
 def local_block_attention(q, k, v, *, window: int, block: int = 512,
                           scale: Optional[float] = None):
     """Sliding-window causal attention as banded Block-ELL gather.
@@ -153,8 +168,8 @@ def local_block_attention(q, k, v, *, window: int, block: int = 512,
 
     k_blocks = k.float().reshape(b, nq, block, n_kv, d)
     v_blocks = v.float().reshape(b, nq, block, n_kv, d)
-    k_g = k_blocks[:, ell_idx]  # [B, nq, w, block, Hkv, D]
-    v_g = v_blocks[:, ell_idx]
+    k_g = _band(k_blocks, w_blocks)  # [B, nq, w, block, Hkv, D]
+    v_g = _band(v_blocks, w_blocks)
 
     logits = torch.einsum("bnqhgd,bnwkhd->bnhgqwk", q_blocks, k_g) * scale
 

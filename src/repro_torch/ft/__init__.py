@@ -2,7 +2,7 @@
 
 * :mod:`repro_torch.ft.health` — straggler detection, heartbeats and the
   simulated hot-spare cluster; pure Python, the reference's decisions.
-
-``ft/checkpoint.py`` and ``ft/resharding.py`` come with the distributed
-and training infrastructure.
+* :mod:`repro_torch.ft.checkpoint` — atomic, async checkpoints in the
+  reference's on-disk layout.
+* :mod:`repro_torch.ft.resharding` — re-placing a state onto a new mesh.
 """

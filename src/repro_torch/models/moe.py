@@ -7,10 +7,15 @@ here is the reference's: group tokens by expert with a sort, truncate each
 expert's group to its capacity, and run one batched matmul over the
 experts.
 
-The port has the reference's single-device branch only.  Its
-expert-parallel branch (``shard_map`` over the mesh's ``model`` axis)
-waits for the port's sharding package; until then ``moe_ffn`` always
-takes the local branch, as the reference does without a mesh.
+Expert parallelism: with a mesh installed (``repro_torch.sharding``)
+whose ``model`` axis divides the experts, each model-rank runs the
+dispatch on ITS experts for its slice of the batch (split over
+``pod`` / ``data`` when that divides it), and the partial outputs fold
+with one sum over the ``model`` group, in ``x.dtype`` as the reference
+sums on the wire: with top-1 routing each token has exactly one nonzero
+contribution across ranks.  The reference's ``shard_map`` body is written
+out as one rank's work; every rank of the mesh calls ``moe_ffn`` with the
+same whole ``x`` and params and gets the whole output back.
 """
 from __future__ import annotations
 
@@ -19,6 +24,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _he, activation, init_mlp, mlp
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.specs import (axis_group, axis_index, axis_names,
+                                        axis_sizes)
 
 
 def init_moe(gen, cfg: ModelConfig, *, lead=()):
@@ -99,15 +107,57 @@ def _dispatch_compute(p_router, w_in, w_gate, w_out, xf, cfg: ModelConfig,
     return y, aux
 
 
+def _expert_parallel(p, x, cfg: ModelConfig, mesh):
+    """One rank's share of ``moe_ffn`` on a mesh (the reference's
+    ``shard_map`` branch); returns the whole ``(y [B*S, d] in x.dtype,
+    aux)``."""
+    from torch.distributed.nn import functional as dist_fn
+
+    b, s, d = x.shape
+    sizes = axis_sizes(mesh)
+    tp = sizes["model"]
+    e_local = cfg.n_experts // tp
+    batch_ax = tuple(a for a in ("pod", "data") if a in sizes)
+    nb = int(np.prod([sizes[a] for a in batch_ax])) if batch_ax else 1
+    b_ok = b % nb == 0 and b >= nb
+    split = b_ok and nb > 1
+    x_local = x.reshape((nb, b // nb, s, d))[axis_index(mesh, batch_ax)] \
+        if split else x
+    cap = _capacity(x_local.shape[0] * s, cfg)
+    rank = axis_index(mesh, "model")
+    mine = slice(rank * e_local, (rank + 1) * e_local)
+    w_gate = p["w_gate"][mine] if "w_gate" in p else None
+    yl, aux = _dispatch_compute(
+        p["router"], p["w_in"][mine], w_gate, p["w_out"][mine],
+        x_local.reshape(-1, d), cfg, e_offset=rank * e_local,
+        e_local=e_local, cap=cap)
+    # fold the partial expert outputs in x.dtype (one rounding: one
+    # nonzero contribution a token)
+    yl = dist_fn.all_reduce(yl.to(x.dtype), group=axis_group(mesh, "model"))
+    everyone = axis_group(mesh, axis_names(mesh))
+    aux = dist_fn.all_reduce(aux, group=everyone) \
+        / torch.distributed.get_world_size(everyone)
+    if split:
+        yl = torch.cat(dist_fn.all_gather(
+            yl.contiguous(), group=axis_group(mesh, batch_ax)))
+    return yl, aux
+
+
 def moe_ffn(p, x, cfg: ModelConfig):
     """x: [B, S, d] -> ([B, S, d], aux load-balance loss)."""
     b, s, d = x.shape
+    mesh = shard_ctx.current_mesh()
+    ep_ok = (mesh is not None and "model" in axis_names(mesh)
+             and cfg.n_experts % axis_sizes(mesh)["model"] == 0)
     xf = x.reshape(-1, d)
-    cap = _capacity(xf.shape[0], cfg)
-    y, aux = _dispatch_compute(
-        p["router"], p["w_in"], p.get("w_gate"), p["w_out"], xf, cfg,
-        e_offset=0, e_local=cfg.n_experts, cap=cap)
-    y = y.to(x.dtype)
+    if not ep_ok:
+        cap = _capacity(xf.shape[0], cfg)
+        y, aux = _dispatch_compute(
+            p["router"], p["w_in"], p.get("w_gate"), p["w_out"], xf, cfg,
+            e_offset=0, e_local=cfg.n_experts, cap=cap)
+    else:
+        y, aux = _expert_parallel(p, x, cfg, mesh)
+    y = y.to(x.dtype)  # (already x.dtype on the EP path)
     if "shared" in p:
         y = y + mlp(p["shared"], xf, cfg)
     return y.reshape(b, s, d), aux

@@ -8,8 +8,8 @@ attention-like quadratic form, across chunks a loop carries the
 
 Every contraction of three operands is written as two explicit steps, so
 no [B, nc, Q, K, H, P] intermediate forms (``torch.einsum`` would pick its
-own path).  The reference's ``shard_hint`` constraints are no-ops without
-a mesh and are left out here.
+own path).  The reference's ``shard_hint`` calls are in place
+(``repro_torch.sharding.shard_hint``: the identity on per-rank tensors).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _he, _zeros, rms_norm
+from repro_torch.sharding import shard_hint
 
 
 def init_ssm(gen, cfg: ModelConfig, *, lead=()):
@@ -116,11 +117,13 @@ def ssd_chunked(xh, dt, a_log, b_mat, c_mat, *, chunk: int, init_state=None,
     seg = torch.exp(cum[:, :, -1:, :] - cum)  # [B,nc,Q,H]
     sx = (seg.to(cd)[..., None] * xc.to(cd))  # [B,nc,Q,H,P]
     states = torch.einsum("bckn,bckhp->bchpn", f32(bc), f32(sx))
+    states = shard_hint(states, "batch", None, "heads", None, None)
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(cum[:, :, -1, :])  # [B,nc,H]
     if init_state is None:
         init_state = xh.new_zeros((bsz, h, pdim, n), dtype=torch.float32)
+    init_state = shard_hint(init_state, "batch", "heads", None, None)
     st = init_state
     prevs = []
     for c in range(nc):
@@ -148,6 +151,7 @@ def ssm_forward(p, x, cfg: ModelConfig, *, init_state=None, conv_tail=None,
     b_mat = xbc[..., di: di + ds]
     c_mat = xbc[..., di + ds:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
+    xh = shard_hint(xh, "batch", "seq", "heads", None)
     chunk = min(cfg.ssm_chunk, s)
     while s % chunk:  # largest divisor of s not exceeding the target
         chunk -= 1

@@ -13,15 +13,19 @@ int32 tensor, as in the reference's tree) to the host once a step and
 writes the cache's tensors in place; it returns the same tree with
 ``pos`` advanced.  The reference's ``shard_hint`` constraints are no-ops
 without a mesh and ``runtime.unrolled()`` is a cost mode of its dry run:
-both wait for the port's sharding package; the port always loops.
+a cost mode of its dry run that waits for the port's ``runtime`` module:
+the port always loops.  The reference's ``shard_hint`` calls are in place
+(``repro_torch.sharding.shard_hint``: the identity on per-rank tensors).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -31,6 +35,8 @@ from repro_torch.models.rglru import (init_rglru, init_rglru_cache,
                                       rglru_decode_step, rglru_forward)
 from repro_torch.models.ssm import (init_ssm, init_ssm_cache, ssm_decode_step,
                                     ssm_forward)
+from repro_torch.sharding import shard_hint
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (public)
 
 ATTN_KINDS = ("attn", "local", "moe")
 
@@ -48,30 +54,6 @@ def compute_dtype(dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Param trees (nested dicts / tuples / lists of leaves)
 # ---------------------------------------------------------------------------
-
-
-def tree_map(fn: Callable, tree, *rest, is_leaf=None):
-    """``jax.tree_util.tree_map`` over dicts (in sorted key order, as
-    ``jax.tree_util`` flattens them), tuples and lists; ``None`` is an
-    empty subtree."""
-    if is_leaf is not None and is_leaf(tree):
-        return fn(tree, *rest)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
-                            is_leaf=is_leaf) for k in sorted(tree)}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
-                                   is_leaf=is_leaf)
-                          for i, v in enumerate(tree))
-    if tree is None:
-        return None
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree, is_leaf=None):
-    out = []
-    tree_map(lambda x: out.append(x), tree, is_leaf=is_leaf)
-    return out
 
 
 def lm_params_from_numpy(tree, device="cuda"):
@@ -234,6 +216,7 @@ def _apply_block(p, x, kind: str, cfg: ModelConfig, *, positions,
         x = x + y
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h2, cfg)
+    x = shard_hint(x, "batch", "seq", "embed")
     return x, cache_entry, aux
 
 
@@ -314,18 +297,44 @@ def _decode_block(p, x, cache_entry, kind: str, cfg: ModelConfig, *, pos):
 # ---------------------------------------------------------------------------
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``table[ids]``, whose backward sums each row's gradients in f32 in
+    one fixed order (the ids sorted stably, one ``segment_reduce``):
+    the plain gather's backward (``index_put_`` with accumulate) adds a
+    repeated token's gradients with atomics on CUDA."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        rows, perm = torch.sort(flat, stable=True)
+        bounds = torch.searchsorted(
+            rows, torch.arange(ctx.rows + 1, device=rows.device))
+        terms = g.reshape((flat.shape[0],) + g.shape[ids.dim():])[perm]
+        sums = torch.segment_reduce(terms.float(), "sum",
+                                    lengths=bounds.diff(), axis=0,
+                                    unsafe=True)
+        return sums.to(ctx.dtype), None
+
+
 def _embed_inputs(params, cfg: ModelConfig, tokens, vision_embeds=None,
                   dtype=None):
     dtype = compute_dtype(dtype or cfg.dtype)
     # gather, then cast: the same bits as the reference's cast-then-gather
-    x = params["embed"][tokens.long()].to(dtype)
+    x = _EmbedRows.apply(params["embed"], tokens.long()).to(dtype)
     if cfg.vision_tokens and vision_embeds is not None:
         vproj = vision_embeds.to(dtype) @ params["vision_proj"].to(dtype)
         x = torch.cat([vproj, x], dim=1)
     if cfg.family == "audio":
         x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
                                      device=x.device).to(dtype)
-    return x
+    return shard_hint(x, "batch", "seq", "embed")
 
 
 def _index(tree, i):
@@ -370,8 +379,10 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
 
     ``remat`` (train mode, gradients on): each period runs under
     ``torch.utils.checkpoint`` (activations recomputed in the backward;
-    the values do not change).  ``remat_policy`` is accepted for the
-    reference's signature; the port recomputes everything ("nothing")."""
+    the values do not change).  ``remat_policy``: "nothing" saves no
+    activation of a period; "dots" saves the outputs of its matrix
+    products (the reference's ``dots_saveable``), a selective checkpoint
+    that recomputes only the rest."""
     x = _embed_inputs(params, cfg, tokens, vision_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -400,8 +411,10 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
         period_p = params["periods"][i] if unstacked else \
             _index(params["periods"], i)
         if remat and mode == "train" and torch.is_grad_enabled():
+            kw = {"context_fn": _SAVE_DOTS} if remat_policy == "dots" \
+                else {}
             x, aux = checkpoint(remat_body, x, aux, period_p,
-                                use_reentrant=False)
+                                use_reentrant=False, **kw)
         else:
             x, aux, pc = period_body(x, aux, period_p)
             pcs.append(pc)
@@ -423,6 +436,21 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
     return x, cache, aux
 
 
+# the ops whose outputs ``remat_policy="dots"`` keeps (JAX's dot_general:
+# every matrix product as autograd's dispatcher sees it)
+_DOTS = frozenset(getattr(torch.ops.aten, name).default for name in (
+    "mm", "bmm", "addmm", "baddbmm", "mv", "dot"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               _dots_policy)
+
+
 def _lm_head(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["embed"].T
@@ -441,6 +469,7 @@ def chunked_ce_loss(hidden, head_w, targets, mask, *, chunk: int = 1024):
 
     def one(h, t, m):
         logits = h.float() @ head32  # [B,chunk,V]
+        logits = shard_hint(logits, "batch", None, "vocab")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
         return ((lse - gold) * m).sum()
@@ -565,6 +594,7 @@ def decode_step(params, cfg: ModelConfig, token, cache):
 
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
         logits = x[:, 0].float() @ _lm_head(params, cfg).float()
+        logits = shard_hint(logits, "batch", "vocab")
     new_cache = {"periods": cache["periods"], "remainder": cache["remainder"],
                  "pos": pos_t + 1}
     return logits, new_cache

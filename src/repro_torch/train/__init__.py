@@ -1,1 +1,2 @@
-"""Training loops of the port (GNN node classification)."""
+"""Training of the port: the GNN node classifier (``gnn``) and the LM
+step and loop (``optimizer``, ``grad_compress``, ``loop``, ``pipeline``)."""

@@ -1729,17 +1729,39 @@ def test_csr_element_route_sums_in_a_fixed_order(dev):
     vals = rng.standard_normal(nnz).astype(np.float32)
     order = rng.permutation(nnz)
     t = [torch.from_numpy(x[order]).to(dev) for x in (rows, cols, vals)]
-    h = torch.randn(n, 64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(76)
+    h = torch.randn(n, 64, device=dev, generator=gen)
     first = paths.spmm_elements(*t, h, n)
     assert torch.equal(first, paths.spmm_elements(*t, h, n))
     v = h[:, 0].contiguous()
     y = paths.spmv_elements(*t, v, n)
     assert torch.equal(y, paths.spmv_elements(*t, v, n))
     cpu = [x.cpu() for x in t]
-    torch.testing.assert_close(first.cpu(),
-                               paths.spmm_elements(*cpu, h.cpu(), n), **TOL)
-    torch.testing.assert_close(y.cpu(),
-                               paths.spmv_elements(*cpu, v.cpu(), n), **TOL)
+    _hold_reordered_sums(first.cpu(), paths.spmm_elements(*cpu, h.cpu(), n),
+                         rows[order], cols[order], vals[order], h.cpu())
+    _hold_reordered_sums(y.cpu(), paths.spmv_elements(*cpu, v.cpu(), n),
+                         rows[order], cols[order], vals[order],
+                         v.cpu()[:, None])
+
+
+def _hold_reordered_sums(got, want, rows, cols, vals, h):
+    """Each row of the card's sums against the CPU's: two orders of an
+    n-term f32 sum differ by at most (n - 1) eps * sum |a_ij h_j| to first
+    order (n - 1 roundings each way at eps / 2), plus one rounding of each
+    product (a fused multiply-add on the card): the multiple is the row's
+    term count plus one, times f32's eps, times the row's sum of |a_ij h_j|
+    in f64."""
+    n_rows = got.shape[0]
+    terms = np.abs(vals.astype(np.float64))[:, None] \
+        * np.abs(h.numpy().astype(np.float64))[cols.astype(np.int64)]
+    mass = np.zeros((n_rows, terms.shape[1]))
+    np.add.at(mass, rows.astype(np.int64), terms)
+    count = np.bincount(rows.astype(np.int64), minlength=n_rows)
+    bound = (count + 1)[:, None] * np.finfo(np.float32).eps * mass
+    err = np.abs(got.reshape(n_rows, -1).numpy().astype(np.float64)
+                 - want.reshape(n_rows, -1).numpy().astype(np.float64))
+    assert (err <= bound).all(), float((err / np.maximum(bound, 1e-300))
+                                       .max())
 
 
 def _gat_inputs(dev, n=600, d=32, seed=80):
@@ -1975,3 +1997,144 @@ def test_pruned_lm_decode_launches_n1_three_times_a_layer(dev):
         assert spmm_blockell_t_kernel.launches == 3 * cfg.n_layers
         lc, cc = T.decode_step(sp_cpu, cfg, toks[:, t:t + 1], cc)
         torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The LM training step and the mesh at world size 1
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(arch, dev, s=128):
+    from repro_torch.data.pipeline import DataConfig, make_lm_batch
+
+    cfg, T, p_cpu, _ = _lm_smoke(arch, dev)
+    batch = make_lm_batch(cfg, s, 2, 0, DataConfig(seed=1), device="cpu")
+    return cfg, T, p_cpu, batch
+
+
+def _one_step(cfg, T, p_cpu, batch, d):
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_grad_fn, make_train_step)
+    from repro_torch.train.optimizer import OptConfig
+
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=0,
+                                     total_steps=10))
+    params = T.tree_map(lambda a: a.to(d, copy=True), p_cpu)
+    b = {k: v.to(d) for k, v in batch.items()}
+    loss, grads = make_grad_fn(cfg, tcfg)(params, b)
+    state = init_train_state(params, tcfg)
+    params, state, m = make_train_step(cfg, tcfg)(params, state, b)
+    torch.cuda.synchronize() if d.type == "cuda" else None
+    return loss, T.tree_leaves(grads), T.tree_leaves(params), m
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-20b"])
+def test_lm_train_step_twice_equal_bits(dev, arch):
+    """A smoke-size AdamW step (gemma3: S = 128 over its window of 64, so
+    its local layers take the banded gather) run twice on the card without
+    deterministic mode: the loss, every gradient and every updated param
+    equal per ``torch.equal``; the gradients within 1e-4 x max|want| of the
+    CPU's (f32 sums in another order)."""
+    cfg, T, p_cpu, batch = _train_inputs(arch, dev)
+    first = _one_step(cfg, T, p_cpu, batch, dev)
+    again = _one_step(cfg, T, p_cpu, batch, dev)
+    assert torch.equal(first[0], again[0])
+    for a, b in zip(first[1] + first[2], again[1] + again[2]):
+        assert torch.equal(a, b)
+    cpu = _one_step(cfg, T, p_cpu, batch, torch.device("cpu"))
+    assert abs(float(first[0]) - float(cpu[0])) <= 1e-5 * abs(float(cpu[0]))
+    for g, w in zip(first[1], cpu[1]):
+        assert float((g.cpu() - w).abs().max()) \
+            <= 1e-4 * float(w.abs().max()) + 1e-12
+
+
+def test_lm_train_step_runs_in_deterministic_mode(dev):
+    """The gemma3 smoke step under ``torch.use_deterministic_algorithms``:
+    no op of its forward or backward lacks a deterministic kernel (one
+    would raise), and the bits are the normal run's, so the port's own
+    fixed-order sums (the embedding rows, the banded gather) are the ones
+    it runs either way."""
+    cfg, T, p_cpu, batch = _train_inputs("gemma3-4b", dev)
+    normal = _one_step(cfg, T, p_cpu, batch, dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = _one_step(cfg, T, p_cpu, batch, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(normal[0], det[0])
+    for a, b in zip(normal[1] + normal[2], det[1] + det[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture
+def nccl_one_rank(dev, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_mesh_with_no_group_keeps_the_step_on_the_card(dev):
+    """``make_mesh`` with no process group and no ``device`` starts a
+    one-rank NCCL group: ``place_tree`` keeps every leaf of the params and
+    the optimizer state on the card, and a sharded step leaves them there,
+    equal per ``torch.equal`` to the unsharded step."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.specs import make_mesh
+    from repro_torch.sharding.step import make_sharded_train_step, place_tree
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg, T, p_cpu, batch = _train_inputs("gemma3-4b", dev)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=0,
+                                     total_steps=10))
+    b = {k: v.to(dev) for k, v in batch.items()}
+    assert not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        params = T.tree_map(lambda a: a.to(dev, copy=True), p_cpu)
+        p_sh = place_tree(params, mesh)
+        s_sh = place_tree(init_train_state(params, tcfg), mesh)
+        p_sh, s_sh, m = make_sharded_train_step(cfg, tcfg, mesh)(p_sh, s_sh,
+                                                                b)
+        leaves = T.tree_leaves((p_sh, s_sh))
+        assert all(x.to_local().is_cuda for x in leaves)
+        p1, s1, m1 = make_train_step(cfg, tcfg)(
+            params, init_train_state(params, tcfg), b)
+        torch.cuda.synchronize()
+        assert torch.equal(m["loss"], m1["loss"])
+        for got, want in zip(leaves, T.tree_leaves((p1, s1))):
+            assert torch.equal(got.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_spmm_at_world_size_one_is_k1(dev, nccl_one_rank):
+    """``spmm_1p5d`` / ``spmm_2d`` / ``spmm_2p5d`` on a one-rank NCCL mesh:
+    the local product is K1 (launches counted), equal per ``torch.equal``
+    to ``spmm_blockell`` on the same operands."""
+    from repro_torch.core.distributed import spmm_1p5d, spmm_2d, spmm_2p5d
+    from repro_torch.kernels.spmm.ops import spmm_blockell
+    from repro_torch.sharding.specs import make_mesh
+
+    dense = _sparse(90, 512, 512, 0.1)
+    ell = BlockELL.from_dense(dense, 64, 64, device=dev)
+    h = torch.from_numpy(np.random.default_rng(90).standard_normal(
+        (512, 128)).astype(np.float32)).to(dev)
+    want = spmm_blockell(ell, h)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    for fn, m in ((spmm_1p5d, mesh), (spmm_2d, mesh), (spmm_2p5d, mesh3)):
+        spmm_blockell_kernel.launches = 0
+        got = fn(ell, h, m).full_tensor()
+        torch.cuda.synchronize()
+        assert spmm_blockell_kernel.launches == 1, fn.__name__
+        assert torch.equal(got, want), fn.__name__
+

@@ -843,12 +843,20 @@ def test_fleet_results_and_metrics_match_reference():
     """The same seeded requests through a 2-worker thread fleet of each
     package: results within 1e-4 of each other and of ``dense @ h``, the
     same lanes and owners, the same report keys and ``fleet_*`` metric
-    names that every such run emits."""
+    names that every such run emits.  Owners are compared under the
+    lane-sticky round-robin alone: no rebalance (a factor that 9 requests
+    cannot reach) and no heartbeat death on a loaded host (a 30 s
+    deadline), the two timing-driven moves of a lane."""
+    from repro.ft.health import HealthConfig as JHealthConfig
+    from repro_torch.ft.health import HealthConfig
+
     reqs = [_graph(np.random.default_rng(200 + i), 16 + 8 * (i % 3))
             for i in range(9)]
     runs = []
-    for pkg, o in ((t_fleet, obs), (j_fleet, j_obs)):
-        fleet = _fleet(pkg, workers=2)
+    for pkg, o, health in ((t_fleet, obs, HealthConfig),
+                           (j_fleet, j_obs, JHealthConfig)):
+        fleet = _fleet(pkg, workers=2, rebalance_factor=100.0,
+                       health=health(heartbeat_timeout_s=30.0))
         try:
             assert fleet.wait_live(2, timeout=60)
             futs = [fleet.submit(d, h) for d, h in reqs]
@@ -938,7 +946,11 @@ def test_worker_ships_host_arrays_and_plain_reports():
 def test_kernel_error_fails_only_its_request(monkeypatch):
     """K1 raising ``KernelError`` in a worker (``form="ell"``): that one
     request fails with it, dispatched once, never hedged, re-routed or
-    retried, its worker stays live; the next request is served."""
+    retried, its worker stays live; the next request is served.  The
+    heartbeat deadline is far above the thread default (0.5 s), which a
+    loaded host can miss: a restart then warms the hot lanes and runs K1
+    twice more, which is not a retry; no worker may die here."""
+    from repro_torch.ft.health import HealthConfig
     from repro_torch.kernels.spmm import kernel as k1
 
     rng = np.random.default_rng(3)
@@ -956,6 +968,7 @@ def test_kernel_error_fails_only_its_request(monkeypatch):
 
     monkeypatch.setattr(k1, "spmm_blockell_ref", broken_once)
     fleet = _fleet(workers=2, hedge_after_ms=100.0,
+                   health=HealthConfig(heartbeat_timeout_s=30.0),
                    worker=WorkerConfig(device="cpu", form="ell"))
     try:
         assert fleet.wait_live(2, timeout=60)
@@ -977,6 +990,8 @@ def test_kernel_error_fails_only_its_request(monkeypatch):
         rep = fleet.report()
         assert rep["failed"] == 1 and rep["completed"] == 2
         assert rep["fleet"]["live"] == 2
+        assert _counter_total(obs.snapshot(),
+                              "fleet_worker_deaths_total") == 0
     finally:
         fleet.close()
     assert len(calls) == 2  # the failed launch was not retried

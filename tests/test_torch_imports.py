@@ -1,5 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
+``ml_dtypes`` (the card's machine has none; the checkpoint reads bf16
+leaves without it)."""
 import ast
 import os
 import pathlib
@@ -11,13 +13,15 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 # the port's subpackages, each checked by importing it alone
 SUBPACKAGES = ("batch", "configs", "core", "corpus", "data", "dispatch",
                "ft", "kernels", "models", "obs", "resilience", "serve",
-               "serve.fleet", "serve.runtime", "sparse", "train")
+               "serve.fleet", "serve.runtime", "sharding", "sparse", "train")
 # modules checked the same way on their own
-MODULES = ("models.transformer", "models.pruning", "serve.engine")
+MODULES = ("models.transformer", "models.pruning", "serve.engine",
+           "train.loop", "train.pipeline", "ft.checkpoint", "ft.resharding",
+           "core.distributed", "sharding.step")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -57,7 +61,7 @@ def test_subpackage_imports_alone(sub):
         ".", "/") for p in PORT_FILES)
     code = (f"import sys, repro_torch.{sub}; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -67,13 +71,14 @@ def test_subpackage_imports_alone(sub):
 
 @pytest.mark.parametrize("mod", MODULES)
 def test_module_imports_alone(mod):
-    """The LM modules, each imported alone in a fresh interpreter, load
-    neither JAX nor ``repro``."""
+    """The LM, training, checkpoint and mesh modules, each imported alone
+    in a fresh interpreter, load neither JAX, ``repro`` nor
+    ``ml_dtypes``."""
     assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/") + ".py")
             ) in PORT_FILES
     code = (f"import sys, repro_torch.{mod}; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -82,10 +87,11 @@ def test_module_imports_alone(mod):
 
 
 @pytest.mark.parametrize("sub", ["configs", "dispatch", "serve.fleet",
-                                 "sparse"])
+                                 "sharding", "sparse"])
 def test_public_surface_matches_reference(sub):
     """``repro_torch.configs``, ``repro_torch.dispatch``,
-    ``repro_torch.serve.fleet`` and ``repro_torch.sparse`` export the
+    ``repro_torch.serve.fleet``, ``repro_torch.sharding`` and
+    ``repro_torch.sparse`` export the
     reference's names (but the deprecated
     ``SparseOperand``, not ported yet), each bound, and import alone
     without JAX or ``repro``."""
@@ -94,7 +100,7 @@ def test_public_surface_matches_reference(sub):
 
     code = (f"import json, sys, repro_torch.{sub} as m; "
             "bad = sorted(x for x in sys.modules "
-            "if x.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "if x.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')); "
             "unbound = [n for n in m.__all__ if not hasattr(m, n)]; "
             "print(json.dumps(sorted(m.__all__))); "
             "sys.exit(1 if bad or unbound else 0)")
