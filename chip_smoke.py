@@ -309,11 +309,38 @@ Phases, each of which must pass or the script exits non-zero:
      one sharded train step (gemma3 SMOKE_CONFIG), each equal per
      ``torch.equal`` to the unsharded computation.  Budget
      ``PHASE11_BUDGET_S``.
- 12. A JSON line of the backward shapes, one of the serving shapes (phase
+ 12. The deprecated shims and the launchers, after phase 11:
+       (12a) graph (a) again (the same seed), at the paper's width: with
+            the counts set to 0 just before and read just after each
+            call, ``core.spmm.spmm`` at D = ``SHIM_D`` with
+            ``policy="ell"``, ``use_kernel=True`` (K1 x1 each) and
+            ``use_kernel=False`` (the plain version: no launch), and over
+            a ``SparseOperand`` (auto: its plan's launches), each held to
+            the dense f32 oracle at phase 3's gate and each warning once
+            (``DeprecationWarning``); ``core.sddmm.sddmm`` at K =
+            ``SHIM_K`` with ``policy="ell"`` on A's Block-COO view with f32
+            and bf16 weighted values and integer B, C (exact dots): K3 x1
+            with the round-once epilogue, equal per ``torch.equal`` to its
+            plain version, the cells where the round-the-dot-first
+            epilogue would differ printed; K3's weighted bf16 launch timed
+            beside its plain version and bound;
+       (12b) ``launch.serve.main(["--arch", "gemma3-4b", "--full"])``:
+            full width and depth, B = 4, a 64-token prompt, 32 new tokens;
+            its tokens/s line;
+       (12c) ``launch.train.main`` with ``--full`` at
+            ``LAUNCH_TRAIN_FULL`` (f32 AdamW at full width and depth; the
+            loss must be finite), then at SMOKE_CONFIG with a checkpoint
+            directory (temporary) every 2 of 4 steps: the restored params
+            and moments equal the saved ones per ``torch.equal``, and
+            ``--resume`` starts its batches at the saved step.
+     K1's and K3's launches join the kernel rows'; its budget,
+     ``PHASE12_BUDGET_S``, is printed beside its wall.
+ 13. A JSON line of the backward shapes, one of the serving shapes (phase
      6's kernel rows and runs), one of phase 7, one of phase 8 (the
      fleet), one of phase 9 (``lm``), one of phase 10 (``lm_train``), one
-     of phase 11 (``mesh``), a JSON line of the kernels, the script's
-     wall time, the card line, and the final JSON line.
+     of phase 11 (``mesh``), one of phase 12 (``shims_launch``), a JSON
+     line of the kernels, the script's wall time, the card line, and the
+     final JSON line.
 
 Without a CUDA device, or without the repository around it, the script
 exits non-zero and prints no result.
@@ -322,6 +349,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -558,6 +586,17 @@ PHASE10_BUDGET_S = 150.0
 # phase 11: the mesh at world size 1 (one NCCL rank), graph (a) at D = 128
 MESH_D = 128
 PHASE11_BUDGET_S = 30.0
+# phase 12: the deprecated shims on graph (a): the SpMM width, the SDDMM's
+# K and the range of B's and C's integer entries (the f32 dots exact, many
+# of them no bf16 value, so the two epilogues of K3 differ in bf16); the
+# launchers at gemma3-4b's full config (train: batch, prompt, steps) and
+# at its SMOKE_CONFIG (checkpoint interval, steps, batch, prompt)
+SHIM_D = 128
+SHIM_K = 2
+SHIM_INT = 40
+LAUNCH_TRAIN_FULL = (1, 1024, 2)
+LAUNCH_TRAIN_SMOKE = (2, 4, 2, 64)
+PHASE12_BUDGET_S = 120.0
 
 
 def log(*args):
@@ -618,6 +657,11 @@ class Port:
         from repro_torch.train import loop as lm_train
         from repro_torch.train import optimizer as lm_opt
         from repro_torch.train import pipeline as gpipe
+        from repro_torch.core import sddmm as core_sddmm
+        from repro_torch.core import spmm as core_spmm
+        from repro_torch.dispatch import operand
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.launch import train as launch_train
 
         self.cfg = paper_gnn.CONFIG
         self.GNNConfig = paper_gnn.GNNConfig
@@ -650,6 +694,9 @@ class Port:
         self.shard_ctx, self.shard_specs, self.shard_step = \
             shard_ctx, shard_specs, shard_step
         self.lm_train, self.lm_opt = lm_train, lm_opt
+        self.core_spmm, self.core_sddmm = core_spmm, core_sddmm
+        self.SparseOperand = operand.SparseOperand
+        self.launch_serve, self.launch_train = launch_serve, launch_train
         self.wrappers = {
             "K1": kernel.spmm_blockell_kernel,
             "K2": sell.spmm_sell_kernel,
@@ -5022,6 +5069,204 @@ def mesh_phase(torch, np, port):
     return out, k1
 
 
+def deprecations(fn):
+    """``fn()`` and the number of DeprecationWarnings it raised."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, sum(issubclass(w.category, DeprecationWarning)
+                    for w in caught)
+
+
+def printed(fn):
+    """``fn()`` and the lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def shim_calls(torch, port, what, fn, want_counts, n_warnings=1):
+    """One deprecated call between counts set to 0 and read: its launches
+    must be ``want_counts`` and it must warn ``n_warnings`` times."""
+    port.reset_counts()
+    got, warned = deprecations(fn)
+    torch.cuda.synchronize()
+    counts = port.counts()
+    if counts != expected(port, want_counts, 1):
+        raise AssertionError(f"12a {what} launched {counts}, not "
+                             f"{want_counts}")
+    if warned != n_warnings:
+        raise AssertionError(f"12a {what}: {warned} DeprecationWarnings, "
+                             f"not {n_warnings}")
+    return got, counts
+
+
+def shim_checks(torch, np, port, out):
+    """12a: the deprecated shims at graph (a)'s full width; returns their
+    K1 and K3 launches."""
+    dev = torch.device(DEVICE)
+    n = N_NODES
+    rng = np.random.default_rng(SEED)
+    adj = (rng.random((n, n), dtype=np.float32) < 0.1).astype(np.float32)
+    a = normalized_dense(np, adj)
+    del adj
+    ell = port.BlockELL.from_dense(a, 64, 64, device=DEVICE)
+    h = torch.as_tensor(rng.standard_normal((n, SHIM_D)).astype(np.float32),
+                        device=dev)
+    a_dev = torch.as_tensor(a, device=dev)
+    del a
+    oracle = a_dev @ h
+    del a_dev
+    tol = oracle_tol(oracle)
+    spmm = port.core_spmm.spmm
+    launched = {"K1": 0, "K3": 0}
+    rows = {}
+    op, counts = shim_calls(torch, port, "SparseOperand(ell=...)",
+                            lambda: port.SparseOperand(ell=ell), {})
+    for what, call, uses_k1 in (
+            ("policy=ell", lambda: spmm(ell, h, policy="ell"), True),
+            ("use_kernel=True", lambda: spmm(ell, h, use_kernel=True), True),
+            ("use_kernel=False", lambda: spmm(ell, h, use_kernel=False),
+             False),
+            ("SparseOperand, auto", lambda: spmm(op, h), None)):
+        if uses_k1 is None:  # auto: the plan's path
+            plan = port.dispatch.plan_spmm(op.stats(), SHIM_D,
+                                           device=dev,
+                                           candidates=("ell", "csr", "dense"))
+            uses_k1 = plan.path == "ell"
+        got, counts = shim_calls(torch, port, what, call,
+                                 {"K1": 1} if uses_k1 else {})
+        path = port.dispatch.last_plan("spmm").path
+        err = float((got - oracle).abs().max())
+        if err > tol:
+            raise AssertionError(f"12a spmm {what}: {err:.3e} from the "
+                                 f"dense oracle (tol {tol:.3e})")
+        launched["K1"] += counts["K1"]
+        rows[what] = {"path": path, "K1": counts["K1"], "oracle_err": err}
+        log(f"12a core.spmm.spmm {what} on graph (a), D={SHIM_D}: path "
+            f"{path}, K1 x{counts['K1']}, one DeprecationWarning, {err:.3e} "
+            f"from the dense f32 oracle (tol {tol:.3e})")
+    del oracle, h, op
+    torch.cuda.empty_cache()
+
+    coo = port.paths.ell_to_coo(ell)
+    b = torch.as_tensor(rng.integers(-SHIM_INT, SHIM_INT + 1, (n, SHIM_K))
+                        .astype(np.float32), device=dev)
+    c = torch.as_tensor(rng.integers(-SHIM_INT, SHIM_INT + 1, (SHIM_K, n))
+                        .astype(np.float32), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        mask = coo.blocks.to(dtype)
+        coo_d = dataclasses.replace(coo, blocks=mask)
+        bd, cd = b.to(dtype), c.to(dtype)
+        got, counts = shim_calls(
+            torch, port, f"sddmm {name}",
+            lambda: port.core_sddmm.sddmm(coo_d, bd, cd, policy="ell"),
+            {"K3": 1})
+        launched["K3"] += counts["K3"]
+        plain = port.sddmm_ref.sddmm_blockcoo_ref(coo.rows, coo.cols, mask,
+                                                  bd, cd)
+        if not torch.equal(got.blocks, plain):
+            raise AssertionError(f"12a sddmm {name}: K3 (round once) is not "
+                                 "its plain version's bits")
+        first = port.sddmm_ref.sddmm_blockcoo_ref(coo.rows, coo.cols, mask,
+                                                  bd, cd, round_dot=True)
+        differ = int((first != got.blocks).sum())
+        del first, plain, got
+        row = {"K3": counts["K3"], "equal_bits_plain": True,
+               "cells_round_dot_first_differs": differ,
+               "cells": mask.numel()}
+        if dtype == torch.bfloat16:
+            k3, ops = port.wrappers["K3"], (coo.rows, coo.cols, mask, bd, cd)
+            cells = mask.numel()
+            nbytes = nbytes_of(coo.rows, coo.cols, mask, bd, cd) + cells * 2
+            row.update(measure(
+                torch, "K3 weighted bf16, round once", lambda: k3(*ops),
+                lambda: port.sddmm_ref.sddmm_blockcoo_ref(*ops), None,
+                nbytes, 2 * SHIM_K * cells + cells,
+                f"graph (a) Block-COO, K={SHIM_K}, the shims' epilogue"))
+        rows[f"sddmm {name}"] = row
+        log(f"12a core.sddmm.sddmm policy=ell, {name} weighted values, "
+            f"K={SHIM_K} (integer B, C: exact dots): K3 x{counts['K3']} "
+            "round once, "
+            f"one DeprecationWarning, equal to its plain version per "
+            f"torch.equal; the round-the-dot-first epilogue would differ in "
+            f"{differ} of {mask.numel()} cells")
+        del mask, coo_d, bd, cd
+    del coo, ell, b, c
+    torch.cuda.empty_cache()
+    out["shims"] = rows
+    return launched
+
+
+def launcher_checks(torch, np, port, out):
+    """12b and 12c: the serve and train launchers on the card."""
+    toks, lines = printed(lambda: port.launch_serve.main(
+        ["--arch", "gemma3-4b", "--full", "--device", DEVICE]))
+    if toks.shape != (4, 32) or not (
+            (toks >= 0) & (toks < port.lm_cfg.vocab_size)).all():
+        raise AssertionError(f"12b launch.serve: tokens {toks.shape}")
+    out["serve"] = lines
+    log(f"12b launch.serve --arch gemma3-4b --full (34 layers, B = 4, a "
+        f"64-token prompt, 32 new tokens): {lines[0]}; {lines[1]}")
+    torch.cuda.empty_cache()
+
+    batch, seq, steps = LAUNCH_TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, lines = printed(lambda: port.launch_train.main(
+        ["--arch", "gemma3-4b", "--full", "--batch", str(batch), "--seq",
+         str(seq), "--steps", str(steps), "--device", DEVICE]))
+    wall = time.perf_counter() - t0
+    losses = [row["loss"] for row in res["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"12c launch.train --full: losses {losses}")
+    del res
+    torch.cuda.empty_cache()
+    out["train_full"] = {"lines": lines, "wall_s": wall,
+                         "peak_gib": peak_gib(torch)}
+    log(f"12c launch.train --arch gemma3-4b --full --batch {batch} --seq "
+        f"{seq} --steps {steps} (f32 AdamW, 34 layers): {lines[-1]} "
+        f"(finite); wall {wall:.1f} s, peak {peak_gib(torch):.2f} GiB")
+
+    every, steps, batch, seq = LAUNCH_TRAIN_SMOKE
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--arch", "gemma3-4b", "--batch", str(batch), "--seq",
+                str(seq), "--steps", str(steps), "--ckpt-dir", d,
+                "--ckpt-every", str(every), "--device", DEVICE]
+        first, _ = printed(lambda: port.launch_train.main(args))
+        saved = port.checkpoint.Checkpointer(d).restore(
+            {"params": first["params"], "state": first["state"]})
+        same_bits_leafwise(
+            torch, port, "12c the restored checkpoint",
+            (saved["params"], saved["state"]),
+            [x.cpu() for x in port.lm.tree_leaves(
+                (first["params"], first["state"]))])
+        _, lines = printed(lambda: port.launch_train.main(
+            args + ["--resume"]))
+    if lines[0] != f"resumed from step {steps}" \
+            or not lines[1].startswith(f"step {steps:5d}  loss "):
+        raise AssertionError(f"12c launch.train --resume printed {lines[:2]}")
+    out["train_resume"] = lines
+    log(f"12c launch.train at SMOKE_CONFIG, --ckpt-every {every} --steps "
+        f"{steps}: the restored params and moments equal the saved ones "
+        f"per torch.equal; --resume: {lines[0]}, first step {lines[1]}")
+
+
+def shims_launch_phase(torch, np, port):
+    """Phase 12: the deprecated shims on K1 and K3, and the launchers."""
+    t0 = time.perf_counter()
+    out = {}
+    launched = shim_checks(torch, np, port, out)
+    launcher_checks(torch, np, port, out)
+    out["launches"] = launched
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12: wall {out['wall_s']:.1f} s (budget "
+        f"{PHASE12_BUDGET_S:.0f} s); launches on its main path {launched}")
+    return out, launched
+
+
 def main() -> int:
     import torch
 
@@ -5121,6 +5366,9 @@ def main() -> int:
     lm_train_summary = lm_train_phase(torch, np, port)
     mesh_summary, mesh_k1 = mesh_phase(torch, np, port)
     rows["K1"]["launches"] += mesh_k1
+    shims_summary, shims_launched = shims_launch_phase(torch, np, port)
+    for name, count in shims_launched.items():
+        rows[name]["launches"] += count
 
     kernels = []
     for name in sorted(KERNELS):
@@ -5144,6 +5392,7 @@ def main() -> int:
     print(json.dumps({"lm": lm_summary}))
     print(json.dumps({"lm_train": lm_train_summary}))
     print(json.dumps({"mesh": mesh_summary}))
+    print(json.dumps({"shims_launch": shims_summary}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phases 1 "
         f"and 2, the kernel build included, {t_main:.1f} s of it)")

@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import runtime
+
 NEG_INF = -1e30
 
 
@@ -77,11 +79,20 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     ``skip_masked_blocks``: with causal=True and square chunks, kv chunks
     strictly above the diagonal are not visited (q chunk i scans chunks
     0..i), which halves the score FLOPs and changes no value.
+
+    Under ``runtime.cost_mode`` the flags choose instead, as the
+    reference's unrolled attention: the chunks are ``attn_chunk`` (when
+    given, at most S) and, with ``causal_skip``, q chunk i visits only
+    the kv chunks that start at or before its last row.
     """
     b, s, hq, d = q.shape
     n_kv = k.shape[2]
     g = hq // n_kv
     scale = _default_scale(scale, d)
+    if runtime.unrolled():
+        override = runtime.attn_chunk_override()
+        if override:
+            q_chunk = kv_chunk = min(override, s)
     assert s % q_chunk == 0 and s % kv_chunk == 0, (s, q_chunk, kv_chunk)
     nq, nk = s // q_chunk, s // kv_chunk
 
@@ -89,14 +100,21 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     kf, vf = k.float(), v.float()
     qpos_in = torch.arange(q_chunk, device=q.device)
     kpos_in = torch.arange(kv_chunk, device=q.device)
-    skip = causal and skip_masked_blocks and nk == nq and q_chunk == kv_chunk
+    if runtime.unrolled():
+        skip = causal and runtime.causal_skip()
+    else:
+        skip = causal and skip_masked_blocks and nk == nq \
+            and q_chunk == kv_chunk
     out = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
     for qi in range(nq):
         q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk]  # [B,qc,Hkv,G,D]
         acc = q.new_zeros((b, n_kv, g, q_chunk, d), dtype=torch.float32)
         m = q.new_full((b, n_kv, g, q_chunk), NEG_INF, dtype=torch.float32)
         l = q.new_zeros((b, n_kv, g, q_chunk), dtype=torch.float32)
-        for ki in range(qi + 1 if skip else nk):
+        # the kv chunks that start at or before this q chunk's last row
+        n_visit = min(nk, ((qi + 1) * q_chunk - 1) // kv_chunk + 1) \
+            if skip else nk
+        for ki in range(n_visit):
             k_blk = kf[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             v_blk = vf[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             logits = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale

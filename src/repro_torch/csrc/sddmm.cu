@@ -6,17 +6,25 @@
 //
 // K3, for every listed tile t of a Block-COO operand (B [Mp, K]):
 //
-//   Y[t] = round(mask[t] * round(B[rows[t]-block, :] @ C[:, cols[t]-block]))
+//   Y[t] = round(mask[t] * (B[rows[t]-block, :] @ C[:, cols[t]-block]))
 //
 // with A's values as the mask (a weighted mask is allowed), or with no mask
 // (a null pointer): then every cell of each tile is sampled, which is what
 // the ones array the ELL path used to build per call gave, bit for bit
-// (1.0f * acc == acc).  round is the output dtype's rounding; the dot is
-// rounded before the mask multiplies it (a no-op in f32), so one weighted
-// launch equals the unweighted launch followed by values * dots in f32,
-// rounded once, in every dtype.  B and C share one element type TB, the
-// mask and Y another, TO (f32, bf16 or f16 each; the wrapper widens a
-// mixed pair, exactly); dots sum in f32 with fmaf from 0 in ascending K.
+// (1.0f * acc == acc).  round is the output dtype's rounding.  The epilogue
+// (template parameter EPI) rounds as its caller's reference does:
+//  - kMaskOnce: mask * dot in f32, rounded once, as the Pallas kernel's
+//    (mask * acc).astype(o.dtype) (the Block-COO entry points);
+//  - kMaskDotFirst: the dot rounded to the output dtype first, then times
+//    the mask in f32, rounded again, so one weighted launch equals the
+//    unweighted launch followed by values * dots in f32 (the SparseMatrix
+//    ELL path, which mirrors the reference's ones-mask-then-values
+//    composition in sddmm_values);
+//  - kNoMask: the dot rounded once.
+// In f32, or with a 0/1 mask, the two masked epilogues agree bit for bit.
+// B and C share one element type TB, the mask and Y another, TO (f32, bf16
+// or f16 each; the wrapper widens a mixed pair, exactly); dots sum in f32
+// with fmaf from 0 in ascending K.
 //
 // What bounds it on an H100: bytes.  At GAT's K = 2 an output element
 // costs 2 multiply-adds against 4 bytes written (8 with a mask read), far
@@ -157,10 +165,14 @@ __device__ __forceinline__ float round_to(float x) {
   return Elem<T>::to_f(Elem<T>::from_f(x));
 }
 
-// The output element: the dot rounded to TO, times the mask, rounded once.
-template <typename TO, bool MASK>
+// The output element under epilogue EPI (see the note at the top).
+enum class Epi { kNoMask, kMaskOnce, kMaskDotFirst };
+
+template <typename TO, Epi EPI>
 __device__ __forceinline__ TO sample(float acc, TO m) {
-  if constexpr (MASK)
+  if constexpr (EPI == Epi::kMaskOnce)
+    return Elem<TO>::from_f(Elem<TO>::to_f(m) * acc);
+  else if constexpr (EPI == Epi::kMaskDotFirst)
     return Elem<TO>::from_f(Elem<TO>::to_f(m) * round_to<TO>(acc));
   else
     return Elem<TO>::from_f(acc);
@@ -217,7 +229,7 @@ constexpr int kStreamMaxK = 16;
 template <typename TB, typename TO>
 constexpr int kVec = 16 / (sizeof(TB) > sizeof(TO) ? sizeof(TB) : sizeof(TO));
 
-template <typename TB, typename TO, bool MASK>
+template <typename TB, typename TO, Epi EPI>
 __global__ void __launch_bounds__(kThreads)
     sddmm_stream_kernel(const int* __restrict__ rows,
                         const int* __restrict__ cols,
@@ -256,9 +268,9 @@ __global__ void __launch_bounds__(kThreads)
       }
       const size_t at = tile0 + static_cast<size_t>(r) * bn + col;
       TO m[VEC] = {}, out[VEC];
-      if constexpr (MASK) ldcs_vec(mask + at, m);
+      if constexpr (EPI != Epi::kNoMask) ldcs_vec(mask + at, m);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) out[i] = sample<TO, MASK>(acc[i], m[i]);
+      for (int i = 0; i < VEC; ++i) out[i] = sample<TO, EPI>(acc[i], m[i]);
       stcs_vec(y + at, out);
       r += dr;
       v += dv;
@@ -274,7 +286,7 @@ constexpr int kSide = 16;  // the staged kernel's thread grid is kSide^2
 constexpr int kBK = 16;    // K chunk staged per step
 constexpr int kMaxR = 8;   // elements a thread owns per side: 128 / kSide
 
-template <typename TB, typename TO, bool MASK>
+template <typename TB, typename TO, Epi EPI>
 __global__ void __launch_bounds__(kThreads)
     sddmm_staged_kernel(const int* __restrict__ rows,
                         const int* __restrict__ cols,
@@ -343,8 +355,8 @@ __global__ void __launch_bounds__(kThreads)
       if (j >= rj || col >= bn) continue;
       const size_t at = tile0 + static_cast<size_t>(r) * bn + col;
       TO m[1] = {}, out[1];
-      if constexpr (MASK) ldcs_vec(mask + at, m);
-      out[0] = sample<TO, MASK>(acc[i][j], m[0]);
+      if constexpr (EPI != Epi::kNoMask) ldcs_vec(mask + at, m);
+      out[0] = sample<TO, EPI>(acc[i][j], m[0]);
       stcs_vec(y + at, out);
     }
   }
@@ -354,7 +366,7 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename TB, typename TO, bool MASK>
+template <typename TB, typename TO, Epi EPI>
 cudaError_t launch_tiles(const int* rows, const int* cols, const void* mask,
                          const void* b, const void* c, void* y, int n_tiles,
                          int bm, int bn, int k, int n, cudaStream_t stream) {
@@ -363,8 +375,8 @@ cudaError_t launch_tiles(const int* rows, const int* cols, const void* mask,
   const auto* cp = static_cast<const TB*>(c);
   auto* yp = static_cast<TO*>(y);
   if (k <= kStreamMaxK && bn % kVec<TB, TO> == 0 && aligned16(c) &&
-      aligned16(y) && (!MASK || aligned16(mask))) {
-    auto kernel = sddmm_stream_kernel<TB, TO, MASK>;
+      aligned16(y) && (EPI == Epi::kNoMask || aligned16(mask))) {
+    auto kernel = sddmm_stream_kernel<TB, TO, EPI>;
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -377,32 +389,40 @@ cudaError_t launch_tiles(const int* rows, const int* cols, const void* mask,
     kernel<<<grid, kThreads, 0, stream>>>(rows, cols, m, bp, cp, yp, n_tiles,
                                           bm, bn, k, n);
   } else {
-    sddmm_staged_kernel<TB, TO, MASK><<<n_tiles, kThreads, 0, stream>>>(
+    sddmm_staged_kernel<TB, TO, EPI><<<n_tiles, kThreads, 0, stream>>>(
         rows, cols, m, bp, cp, yp, bm, bn, k, n);
   }
   return cudaGetLastError();
 }
 
 // The instance for B / C's element type TB (code 0 f32, 1 bf16, 2 f16),
-// Y's and the mask's TO, and whether there is a mask.
+// Y's and the mask's TO, and the epilogue.
 template <typename TB>
-cudaError_t dispatch_out(int out_dtype, bool has_mask, const int* rows,
+cudaError_t dispatch_out(int out_dtype, Epi epi, const int* rows,
                          const int* cols, const void* mask, const void* b,
                          const void* c, void* y, int n_tiles, int bm, int bn,
                          int k, int n, cudaStream_t s) {
   const auto run = [&](auto launch) {
     return launch(rows, cols, mask, b, c, y, n_tiles, bm, bn, k, n, s);
   };
+  const auto by_epi = [&](auto none, auto once, auto dot_first) {
+    return epi == Epi::kNoMask     ? run(none)
+           : epi == Epi::kMaskOnce ? run(once)
+                                   : run(dot_first);
+  };
   switch (out_dtype) {
     case 0:
-      return has_mask ? run(launch_tiles<TB, float, true>)
-                      : run(launch_tiles<TB, float, false>);
+      return by_epi(launch_tiles<TB, float, Epi::kNoMask>,
+                    launch_tiles<TB, float, Epi::kMaskOnce>,
+                    launch_tiles<TB, float, Epi::kMaskDotFirst>);
     case 1:
-      return has_mask ? run(launch_tiles<TB, __nv_bfloat16, true>)
-                      : run(launch_tiles<TB, __nv_bfloat16, false>);
+      return by_epi(launch_tiles<TB, __nv_bfloat16, Epi::kNoMask>,
+                    launch_tiles<TB, __nv_bfloat16, Epi::kMaskOnce>,
+                    launch_tiles<TB, __nv_bfloat16, Epi::kMaskDotFirst>);
     case 2:
-      return has_mask ? run(launch_tiles<TB, __half, true>)
-                      : run(launch_tiles<TB, __half, false>);
+      return by_epi(launch_tiles<TB, __half, Epi::kNoMask>,
+                    launch_tiles<TB, __half, Epi::kMaskOnce>,
+                    launch_tiles<TB, __half, Epi::kMaskDotFirst>);
   }
   return cudaErrorInvalidValue;
 }
@@ -820,27 +840,30 @@ __global__ void __launch_bounds__(kThreads)
 // (every cell sampled); b [*, k] with rows[t] * bm + bm <= its row count and
 // c [k, n] with n a multiple of bn, both of dtype b_dtype; y [n_tiles, bm,
 // bn] of dtype out_dtype (codes 0 f32, 1 bf16, 2 f16).  bm, bn <= 128.
+// round_dot 0: a mask multiplies the f32 dot, rounded once (kMaskOnce);
+// 1: the dot is rounded first (kMaskDotFirst); no effect without a mask.
 // Returns the cudaError_t of the launch.
 extern "C" int sddmm_tiles(const int* rows, const int* cols, const void* mask,
                            const void* b, const void* c, void* y, int n_tiles,
                            int bm, int bn, int k, int n, int b_dtype,
-                           int out_dtype, void* stream) {
+                           int out_dtype, int round_dot, void* stream) {
   if (n_tiles == 0) return cudaSuccess;
   if (bm < 1 || bn < 1 || bm > kMaxR * kSide || bn > kMaxR * kSide || k < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool has_mask = mask != nullptr;
+  const Epi epi = mask == nullptr ? Epi::kNoMask
+                  : round_dot     ? Epi::kMaskDotFirst
+                                  : Epi::kMaskOnce;
   switch (b_dtype) {
     case 0:
-      return dispatch_out<float>(out_dtype, has_mask, rows, cols, mask, b, c,
-                                 y, n_tiles, bm, bn, k, n, s);
+      return dispatch_out<float>(out_dtype, epi, rows, cols, mask, b, c, y,
+                                 n_tiles, bm, bn, k, n, s);
     case 1:
-      return dispatch_out<__nv_bfloat16>(out_dtype, has_mask, rows, cols,
-                                         mask, b, c, y, n_tiles, bm, bn, k,
-                                         n, s);
+      return dispatch_out<__nv_bfloat16>(out_dtype, epi, rows, cols, mask, b,
+                                         c, y, n_tiles, bm, bn, k, n, s);
     case 2:
-      return dispatch_out<__half>(out_dtype, has_mask, rows, cols, mask, b,
-                                  c, y, n_tiles, bm, bn, k, n, s);
+      return dispatch_out<__half>(out_dtype, epi, rows, cols, mask, b, c, y,
+                                  n_tiles, bm, bn, k, n, s);
   }
   return cudaErrorInvalidValue;
 }

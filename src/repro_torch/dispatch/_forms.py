@@ -84,10 +84,16 @@ class LazyForms:
         return self._dense
 
     def dense_tensor(self) -> torch.Tensor:
-        """The dense matrix on the operand's device."""
+        """The dense matrix on the operand's device, in its values' dtype
+        (a Block-ELL given is densified on the device: numpy has no bf16)."""
         if self._dense_tensor is None:
-            self._dense_tensor = torch.from_numpy(
-                np.ascontiguousarray(self.dense())).to(self.device)
+            if self._dense is None and self._ell is not None:
+                from repro_torch.sparse.paths import densify_ell
+
+                self._dense_tensor = densify_ell(self._ell)
+            else:
+                self._dense_tensor = torch.from_numpy(
+                    np.ascontiguousarray(self.dense())).to(self.device)
         return self._dense_tensor
 
     def ell(self) -> BlockELL:
@@ -106,9 +112,18 @@ class LazyForms:
         """(row_ids, col_ids, values) on the device, for the element
         path."""
         if self._csr_arrays is None:
-            from repro_torch.sparse.paths import csr_to_device_arrays
+            if self._csr is None and self._dense is None:
+                # from the Block-ELL on the device, in its dtype, row-major
+                # as CSR.from_dense orders them
+                dt = self.dense_tensor()
+                r, c = torch.nonzero(dt, as_tuple=True)
+                self._csr_arrays = (r.to(torch.int32), c.to(torch.int32),
+                                    dt[r, c])
+            else:
+                from repro_torch.sparse.paths import csr_to_device_arrays
 
-            self._csr_arrays = csr_to_device_arrays(self.csr(), self.device)
+                self._csr_arrays = csr_to_device_arrays(self.csr(),
+                                                        self.device)
         return self._csr_arrays
 
     # -- stats --------------------------------------------------------------

@@ -13,7 +13,9 @@ counts in ``obs.counter("dispatch_plans_total", op=, path=, policy=)``.
 ``dispatch_spmm`` / ``dispatch_sddmm`` are the legacy entry points over a
 ``LazyForms`` (a ``BlockELL``, a ``SparseMatrix`` or a dense matrix is
 wrapped in one); their candidates are ell, csr and dense, and every run
-is timed into ``obs.AUDIT`` (``_audit_run``).
+is timed into ``obs.AUDIT`` (``_audit_run``).  They take the reference's
+``use_kernel`` / ``interpret`` / ``bd`` (``bk``) / ``out_dtype`` keywords,
+read as ``repro_torch.sparse.legacy`` says.
 """
 from __future__ import annotations
 
@@ -291,9 +293,12 @@ def _as_spmm_operand(a, device: torch.device) -> LazyForms:
     return LazyForms.from_dense(np.asarray(a), device=device)
 
 
-def _run_spmm_path(path: str, op: LazyForms, h: torch.Tensor):
+def _run_spmm_path(path: str, op: LazyForms, h: torch.Tensor, *,
+                   use_kernel: Optional[bool] = None, interpret: bool = False,
+                   out_dtype=None):
     from repro_torch.kernels.spmm.ops import spmm_blockell
-    from repro_torch.sparse import paths
+    from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+    from repro_torch.sparse import legacy, paths
 
     m, n = op.shape
     if h.shape[0] != n:
@@ -304,13 +309,22 @@ def _run_spmm_path(path: str, op: LazyForms, h: torch.Tensor):
         raise ValueError(f"spmm: H is on {h.device}, A on {op.device}")
     if path == PATH_ELL:
         ell = op.ell()
-        return spmm_blockell(ell, paths.pad_rows(h, ell.shape[1])
-                             .contiguous())[:m]
+        hh = paths.pad_rows(h, ell.shape[1]).contiguous()
+        plain = legacy.plain_requested(use_kernel, interpret, hh.device)
+        blocks = ell.blocks.to(legacy.compute_dtype(
+            torch.promote_types(ell.blocks.dtype, h.dtype), out_dtype))
+        if plain:  # asked for by the caller, on any device
+            y = spmm_blockell_ref(ell.indices, blocks, hh)
+        else:
+            y = spmm_blockell(dataclasses.replace(ell, blocks=blocks), hh)
+        return legacy.in_out_dtype(y[:m], out_dtype)
     if path == PATH_CSR:
         row_ids, col_ids, values = op.csr_arrays()
-        return paths.spmm_elements(row_ids, col_ids, values, h, m)
+        return legacy.in_out_dtype(
+            paths.spmm_elements(row_ids, col_ids, values, h, m), out_dtype)
     if path == PATH_DENSE:
-        return paths.spmm_dense(op.dense_tensor(), h)
+        return legacy.in_out_dtype(paths.spmm_dense(op.dense_tensor(), h),
+                                   out_dtype)
     raise ValueError(f"unknown spmm path {path!r}")
 
 
@@ -319,6 +333,10 @@ def dispatch_spmm(
     h: torch.Tensor,
     *,
     policy: str = POLICY_AUTO,
+    use_kernel: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+    bd: Optional[int] = None,
+    out_dtype=None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
     config: DispatchConfig = DEFAULT_CONFIG,
     cache: Optional[AutotuneCache] = None,
@@ -328,14 +346,25 @@ def dispatch_spmm(
     ``a``: a ``LazyForms``, ``BlockELL``, ``SparseMatrix`` or dense matrix
     (numpy or a tensor; its forms are built on ``h``'s device).  A 1-D
     ``h`` gives a 1-D result.  The candidates are ell (K1 on the card),
-    csr and dense: a ``LazyForms`` carries no sell packing.
+    csr and dense: a ``LazyForms`` carries no sell packing.  Explicit
+    ``use_kernel`` / ``interpret`` force the ell path (the legacy kwarg
+    rule, ``repro_torch.sparse.legacy.coerce_kernel_kwargs``, which also
+    says what they, ``bd`` and ``out_dtype`` mean).
     """
-    policy = normalize_policy(policy)
+    from repro_torch.sparse.legacy import coerce_kernel_kwargs
+
+    policy, use_kernel, interpret, _ = coerce_kernel_kwargs(
+        policy, use_kernel, interpret)
     h_was_1d = h.ndim == 1
     if h_was_1d:
         h = h[:, None]
     operand = _as_spmm_operand(a, h.device)
     d = h.shape[1]
+
+    def run(p):
+        return _run_spmm_path(p, operand, h, use_kernel=use_kernel,
+                              interpret=interpret, out_dtype=out_dtype)
+
     if policy in LEGACY_PATHS:
         # forced path: no stats needed (skips the host nonzero count)
         plan = record_plan(Plan(op="spmm", path=policy, policy=policy,
@@ -346,14 +375,14 @@ def dispatch_spmm(
         if policy == POLICY_AUTOTUNE:
             plan = autotune_plan(
                 "spmm", stats, d, h.dtype,
-                {p: (lambda p=p: _run_spmm_path(p, operand, h))
-                 for p in LEGACY_PATHS}, operand.device, config, cache)
+                {p: (lambda p=p: run(p)) for p in LEGACY_PATHS},
+                operand.device, config, cache)
         else:
             plan = plan_spmm(stats, d, policy=policy, cost_model=cost_model,
                              config=config, device=operand.device,
                              candidates=LEGACY_PATHS)
         record_plan(plan)
-    y = _audit_run(plan, lambda: _run_spmm_path(plan.path, operand, h))
+    y = _audit_run(plan, lambda: run(plan.path))
     return y[:, 0] if h_was_1d else y
 
 
@@ -364,7 +393,7 @@ def dispatch_spmm(
 
 def _coo_element_coords(coo: BlockCOO):
     """Host-side element coordinates of a BlockCOO's nonzeros."""
-    blocks = coo.blocks.cpu().numpy()
+    blocks = (coo.blocks != 0).cpu().numpy()  # numpy has no bf16
     rows = coo.rows.cpu().numpy()
     cols = coo.cols.cpu().numpy()
     e, i, j = np.nonzero(blocks)
@@ -374,13 +403,26 @@ def _coo_element_coords(coo: BlockCOO):
 
 
 def _run_sddmm_path(path: str, coo: BlockCOO, b: torch.Tensor,
-                    c: torch.Tensor) -> BlockCOO:
+                    c: torch.Tensor, *, use_kernel: Optional[bool] = None,
+                    interpret: bool = False, out_dtype=None) -> BlockCOO:
     from repro_torch.kernels.sddmm.ops import sddmm_blockcoo
-    from repro_torch.sparse import paths
+    from repro_torch.kernels.sddmm.ref import sddmm_blockcoo_ref
+    from repro_torch.sparse import legacy, paths
 
+    natural = torch.promote_types(coo.blocks.dtype, b.dtype)
     if path == PATH_ELL:
-        return sddmm_blockcoo(coo, b, c)
-    out_dtype = torch.promote_types(coo.blocks.dtype, b.dtype)
+        # the reference's kernel: A's value times the f32 dot, rounded once
+        plain = legacy.plain_requested(use_kernel, interpret, b.device)
+        mask = coo.blocks.to(legacy.compute_dtype(natural, out_dtype))
+        if plain:  # asked for by the caller, on any device
+            blocks = sddmm_blockcoo_ref(coo.rows, coo.cols, mask, b, c)
+        else:
+            blocks = sddmm_blockcoo(
+                dataclasses.replace(coo, blocks=mask), b, c).blocks
+        return BlockCOO(rows=coo.rows, cols=coo.cols,
+                        blocks=legacy.in_out_dtype(blocks, out_dtype),
+                        shape=coo.shape)
+    out_dtype = out_dtype or natural
     if path == PATH_CSR:
         e, i, j, gr, gc = (torch.from_numpy(x).to(b.device)
                            for x in _coo_element_coords(coo))
@@ -407,6 +449,10 @@ def dispatch_sddmm(
     c: torch.Tensor,
     *,
     policy: str = POLICY_AUTO,
+    use_kernel: Optional[bool] = None,
+    interpret: Optional[bool] = None,
+    bk: Optional[int] = None,
+    out_dtype=None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
     config: DispatchConfig = DEFAULT_CONFIG,
     cache: Optional[AutotuneCache] = None,
@@ -416,11 +462,15 @@ def dispatch_sddmm(
     ``a``: a BlockCOO (A's mask and values), a ``SparseMatrix`` or a dense
     matrix (numpy or a tensor), which is tiled in 64 x 64 blocks on
     ``b``'s device.  Paths as SpMM's: "ell" is the Block-COO path (K3 on
-    the card), "csr" the element path, "dense" the full product sampled.
+    the card, each cell A's value times the f32 dot rounded once, as the
+    reference's kernel), "csr" the element path, "dense" the full product
+    sampled.  The legacy keywords as ``dispatch_spmm``'s.
     """
+    from repro_torch.sparse.legacy import coerce_kernel_kwargs
     from repro_torch.sparse.matrix import SparseMatrix
 
-    policy = normalize_policy(policy)
+    policy, use_kernel, interpret, _ = coerce_kernel_kwargs(
+        policy, use_kernel, interpret)
     if not isinstance(a, BlockCOO):
         if isinstance(a, SparseMatrix):
             a = a.form("coo") if a.has_form("coo") else BlockCOO.from_dense(
@@ -444,6 +494,11 @@ def dispatch_sddmm(
 
     b, c = pad_rows(b, mp), pad_cols(c, np_pad)
     k = b.shape[1]
+
+    def run(p):
+        return _run_sddmm_path(p, a, b, c, use_kernel=use_kernel,
+                               interpret=interpret, out_dtype=out_dtype)
+
     if policy in LEGACY_PATHS:
         # forced path: no stats needed (skips the host nonzero count)
         plan = record_plan(Plan(op="sddmm", path=policy, policy=policy,
@@ -454,11 +509,11 @@ def dispatch_sddmm(
         if policy == POLICY_AUTOTUNE:
             plan = autotune_plan(
                 "sddmm", stats, k, b.dtype,
-                {p: (lambda p=p: _run_sddmm_path(p, a, b, c).blocks)
-                 for p in LEGACY_PATHS}, a.device, config, cache)
+                {p: (lambda p=p: run(p).blocks) for p in LEGACY_PATHS},
+                a.device, config, cache)
         else:
             plan = plan_sddmm(stats, k, policy=policy, cost_model=cost_model,
                               config=config, device=a.device,
                               candidates=LEGACY_PATHS)
         record_plan(plan)
-    return _audit_run(plan, lambda: _run_sddmm_path(plan.path, a, b, c))
+    return _audit_run(plan, lambda: run(plan.path))

@@ -61,9 +61,12 @@ def normalize_policy(policy: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class DispatchConfig:
     """Tunables of the dispatch layer (the cost-model constants are in
-    ``dispatch/cost_model.py``).  The reference's ``use_kernel`` is not
-    here: the operand's device chooses between a kernel and its plain
-    version."""
+    ``dispatch/cost_model.py``).  The reference's ``use_kernel`` field is
+    not here: the operand's device chooses between a kernel and its plain
+    version (the kernel on a CUDA tensor, the plain version on a CPU one),
+    and a caller of the legacy ``dispatch_spmm`` / ``dispatch_sddmm`` asks
+    for the plain version on the card per call, with ``use_kernel=False``
+    or ``interpret=True`` (``repro_torch.sparse.legacy``)."""
 
     # autotune measurement
     autotune_warmup: int = 1

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "spmm_blockell_t": ("spmm_blockell_t",
                         [_I, _I] + [_P] * 6 + [_I] * 7 + [_P]),
     "spmm_sell": ("spmm_sell_f32", [_P] * 9 + [_I] * 5 + [_F, _P]),
-    "sddmm": ("sddmm_tiles", [_P] * 6 + [_I] * 7 + [_P]),
+    "sddmm": ("sddmm_tiles", [_P] * 6 + [_I] * 8 + [_P]),
     "sddmm_pattern": ("sddmm_pattern", [_P] * 6 + [_I] * 6 + [_P]),
     "sddmm_sell_slots": ("sddmm_sell_slots_f32", [_P] * 7 + [_I] * 3 + [_P]),
     "fused_attention": ("fused_attn_blockell",

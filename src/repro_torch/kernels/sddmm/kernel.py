@@ -7,7 +7,12 @@ how its design answers that.  Any K >= 1 works.
 
 The mask is optional: without one every cell of each listed tile is
 sampled (the ELL path's unweighted dots), and the kernel reads no mask at
-all.  B, C and the mask are read in their own dtype (f32, bf16 or f16)
+all.  With one, ``round_dot`` picks the epilogue's rounding: False (the
+default) rounds mask x dot once, as the reference's kernel does; True
+rounds the dot to the output dtype first and the product again, which the
+``SparseMatrix`` ELL path asks for (it equals the unweighted launch
+followed by values x dots, the reference's ``sddmm_values``).  In f32, or
+with a 0/1 mask, the two agree bit for bit.  B, C and the mask are read in their own dtype (f32, bf16 or f16)
 and Y is written in its own.
 
 The wrapper runs the plain version (``ref.sddmm_blockcoo_ref``) for CPU
@@ -36,7 +41,8 @@ from repro_torch.kernels.spmm.kernel import (KERNEL_DTYPES, check_geometry,
 
 def launch_tiles(rows, cols, mask_blocks, b, c, what: str, *,
                  block: Optional[Tuple[int, int]] = None,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 round_dot: bool = False) -> torch.Tensor:
     """Check the operands and launch K3 (``csrc/sddmm.cu``) on the current
     stream; returns Y [T, bm, bn] in ``result_type(mask_blocks, b)``, or
     with no mask in ``out_dtype``, with (bm, bn) from ``block``.  B and C of different dtypes are both widened to
@@ -71,7 +77,7 @@ def launch_tiles(rows, cols, mask_blocks, b, c, what: str, *,
             rows.data_ptr(), cols.data_ptr(),
             None if mask_blocks is None else mask_blocks.data_ptr(),
             b.data_ptr(), c.data_ptr(), y.data_ptr(), t_count, bm, bn, k, n,
-            KERNEL_DTYPES[operand], KERNEL_DTYPES[out],
+            KERNEL_DTYPES[operand], KERNEL_DTYPES[out], int(round_dot),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
     return y
@@ -81,16 +87,18 @@ def sddmm_blockcoo_kernel(rows: torch.Tensor, cols: torch.Tensor,
                           mask_blocks: Optional[torch.Tensor],
                           b: torch.Tensor, c: torch.Tensor, *,
                           block: Optional[Tuple[int, int]] = None,
-                          out_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
+                          out_dtype: Optional[torch.dtype] = None,
+                          round_dot: bool = False) -> torch.Tensor:
     """K3: Y[e] = mask[e] ⊙ (B[rows[e]-block] @ C[:, cols[e]-block]),
-    [nnzb, bm, bn] in ``result_type(mask_blocks, b)``; ``b`` [Mp, K] and
-    ``c`` [K, Np] padded to the block grid.  ``mask_blocks`` None samples
-    every cell of each tile, (bm, bn) = ``block``, in ``out_dtype``."""
+    [nnzb, bm, bn] in ``result_type(mask_blocks, b)``, rounded once (with
+    ``round_dot`` the dot is rounded before the mask multiplies it); ``b``
+    [Mp, K] and ``c`` [K, Np] padded to the block grid.  ``mask_blocks``
+    None samples every cell of each tile, (bm, bn) = ``block``, in
+    ``out_dtype``."""
     if mask_blocks is None and (block is None or out_dtype is None):
         raise ValueError("sddmm_blockcoo_kernel: without a mask, block and "
                          "out_dtype are needed")
-    kw = dict(block=block, out_dtype=out_dtype)
+    kw = dict(block=block, out_dtype=out_dtype, round_dot=round_dot)
     if b.device.type == "cpu":
         return sddmm_blockcoo_ref(rows, cols, mask_blocks, b, c, **kw)
     require_cuda(b, "sddmm_blockcoo_kernel")

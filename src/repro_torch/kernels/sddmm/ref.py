@@ -51,19 +51,20 @@ def sddmm_blockcoo_ref(rows: torch.Tensor, cols: torch.Tensor,
                        mask_blocks: Optional[torch.Tensor], b: torch.Tensor,
                        c: torch.Tensor, *,
                        block: Optional[Tuple[int, int]] = None,
-                       out_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       round_dot: bool = False) -> torch.Tensor:
     """Plain version of K3: [nnzb, bm, bn] output blocks.
 
     ``mask_blocks`` are A's values at its nonzero blocks (a 0/1 mask gives
     the sampled product; weighted A gives A ⊙ (B C)); padded entries carry
     zero blocks, so their output is zero.  The output dtype is
     ``result_type(mask_blocks, b)`` (the reference's default).  Each dot is
-    summed in f32 and rounded to that dtype before the mask multiplies it
-    in f32, then rounded once more: the unweighted dots times the values,
-    as the ELL path composed them before the kernel took the values.  The
-    reference's K3 rounds mask x dot once; for f32, or a 0/1 mask, the two
-    are the same (ROADMAP section 3).
+    summed in f32; the mask multiplies it in f32 and the product is
+    rounded once to that dtype, as the reference's kernel does.  With
+    ``round_dot`` the dot is rounded to that dtype first and the product
+    again: the unweighted dots times the values, as the ``SparseMatrix``
+    ELL path composes them (the reference's ``sddmm_values``).  For f32,
+    or a 0/1 mask, the two are the same.
 
     ``mask_blocks`` None samples every cell of each tile: ``block`` gives
     the tile shape (bm, bn) and ``out_dtype`` the output dtype.
@@ -73,8 +74,10 @@ def sddmm_blockcoo_ref(rows: torch.Tensor, cols: torch.Tensor,
         return tile_products(rows, cols, b, c, bm, bn).to(out_dtype)
     _, bm, bn = mask_blocks.shape
     out = torch.promote_types(mask_blocks.dtype, b.dtype)
-    dots = tile_products(rows, cols, b, c, bm, bn).to(out)
-    return (mask_blocks.float() * dots.float()).to(out)
+    dots = tile_products(rows, cols, b, c, bm, bn)
+    if round_dot:
+        dots = dots.to(out).float()
+    return (mask_blocks.float() * dots).to(out)
 
 
 def pack_occupancy(blocks: torch.Tensor) -> torch.Tensor:

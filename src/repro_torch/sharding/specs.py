@@ -96,7 +96,8 @@ def make_mesh(shape, axes, *, devices=None, device="cuda"):
     process group, a mesh of size 1 starts a one-rank group of that
     backend in this process (an in-memory store; the caller destroys it)
     and a larger one raises, as does a group whose backend does not carry
-    ``device``'s tensors."""
+    ``device``'s tensors (a ``fake`` group, which moves no data, carries
+    any)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     dev = resolve_device(device)
@@ -111,7 +112,8 @@ def make_mesh(shape, axes, *, devices=None, device="cuda"):
                              "(torch.distributed.init_process_group)")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
-    elif backend not in dist.get_backend():
+    elif backend not in dist.get_backend() \
+            and dist.get_backend() != "fake":  # launch.dryrun's fake world
         raise ValueError(f"a mesh on {dev.type} needs a {backend} process "
                          f"group, not {dist.get_backend()}")
     ranks = list(range(dist.get_world_size())) if devices is None \

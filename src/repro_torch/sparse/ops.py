@@ -13,6 +13,13 @@ paths follow the forms a matrix carries (``ell`` needs an ``ell`` or
 available.  Each op runs through
 its ``torch.autograd.Function`` (``repro_torch.sparse.autodiff``), so
 ``loss.backward()`` differentiates through the SpMM <-> SDDMM duality.
+
+``matmul``, ``spmv`` and ``sddmm`` take the reference's ``use_kernel`` /
+``interpret`` / ``bd`` (``bk``) / ``out_dtype`` keywords: the first two
+are checked against the operand's device
+(``repro_torch.sparse.legacy.check_front_end_kwargs``), ``bd`` / ``bk``
+choose nothing (the kernels pick their own tiles) and ``out_dtype`` casts
+the result.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from repro_torch.dispatch.policy import (DEFAULT_CONFIG, PATH_CSR,
                                          DispatchConfig, normalize_policy)
 from repro_torch.kernels.fused.epilogue import normalize_epilogue
 from repro_torch.sparse import autodiff
+from repro_torch.sparse.legacy import check_front_end_kwargs, in_out_dtype
 from repro_torch.sparse.matrix import SparseMatrix, single_form
 
 
@@ -126,6 +134,10 @@ def matmul(
     *,
     policy: str = POLICY_AUTO,
     candidates: Optional[Tuple[str, ...]] = None,
+    use_kernel: Optional[bool] = None,
+    interpret: bool = False,
+    bd: Optional[int] = None,
+    out_dtype=None,
     epilogue=None,
     bias: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
@@ -145,11 +157,13 @@ def matmul(
     if not isinstance(a, SparseMatrix):
         raise TypeError(f"matmul expects a SparseMatrix, got {type(a)}")
     _check_operand("spmm: H", h, a)
+    check_front_end_kwargs(use_kernel, interpret, a.device)
     h_was_1d = h.ndim == 1
     if h_was_1d and epilogue is None and bias is None and residual is None:
         return spmv(a, h, policy=policy, candidates=candidates,
-                    cost_model=cost_model, config=config,
-                    autotune_cache=autotune_cache)
+                    use_kernel=use_kernel, interpret=interpret,
+                    out_dtype=out_dtype, cost_model=cost_model,
+                    config=config, autotune_cache=autotune_cache)
     if h_was_1d:
         h = h[:, None]
         if residual is not None and residual.ndim == 1:
@@ -200,6 +214,7 @@ def matmul(
     else:
         y = autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
                                         residual)
+    y = in_out_dtype(y, out_dtype)
     return y[:, 0] if h_was_1d else y
 
 
@@ -214,6 +229,9 @@ def spmv(
     *,
     policy: str = POLICY_AUTO,
     candidates: Optional[Tuple[str, ...]] = None,
+    use_kernel: Optional[bool] = None,
+    interpret: bool = False,
+    out_dtype=None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
     config: DispatchConfig = DEFAULT_CONFIG,
     autotune_cache: Optional[AutotuneCache] = None,
@@ -228,6 +246,7 @@ def spmv(
     if not isinstance(a, SparseMatrix):
         raise TypeError(f"spmv expects a SparseMatrix, got {type(a)}")
     _check_operand("spmv: x", x, a)
+    check_front_end_kwargs(use_kernel, interpret, a.device)
     if x.ndim != 1:
         raise ValueError(f"spmv: x must be 1-D, got shape {tuple(x.shape)}")
     if x.shape[0] != a.shape[1]:
@@ -241,8 +260,8 @@ def spmv(
                          config, autotune_cache,
                          lambda p: lambda: autodiff.spmv_exec(p, a, x))
     record_plan(plan)
-    return autodiff.SpMV.apply(plan.path, a,
-                               autodiff.read_values(a, plan.path), x)
+    return in_out_dtype(autodiff.SpMV.apply(
+        plan.path, a, autodiff.read_values(a, plan.path), x), out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +276,10 @@ def sddmm(
     *,
     policy: str = POLICY_AUTO,
     candidates: Optional[Tuple[str, ...]] = None,
+    use_kernel: Optional[bool] = None,
+    interpret: bool = False,
+    bk: Optional[int] = None,
+    out_dtype=None,
     cost_model: CostModel = DEFAULT_COST_MODEL,
     config: DispatchConfig = DEFAULT_CONFIG,
     autotune_cache: Optional[AutotuneCache] = None,
@@ -272,6 +295,7 @@ def sddmm(
         raise TypeError(f"sddmm expects a SparseMatrix, got {type(a)}")
     _check_operand("sddmm: B", b, a)
     _check_operand("sddmm: C", c, a)
+    check_front_end_kwargs(use_kernel, interpret, a.device)
     if b.shape[0] != a.shape[0]:
         raise ValueError(
             f"sddmm: B has {b.shape[0]} rows but A has {a.shape[0]}")
@@ -288,8 +312,8 @@ def sddmm(
                          cost_model, config, autotune_cache,
                          lambda p: lambda: autodiff.sddmm_values(p, a, b, c))
     record_plan(plan)
-    vals = autodiff.SDDMMValues.apply(plan.path, a,
-                                      autodiff.read_values(a, plan.path), b, c)
+    vals = in_out_dtype(autodiff.SDDMMValues.apply(
+        plan.path, a, autodiff.read_values(a, plan.path), b, c), out_dtype)
     return single_form(a, autodiff.form_read_by(a, plan.path), vals)
 
 

@@ -196,8 +196,10 @@ def spmm_coo(coo: BlockCOO, h):
 
 def sddmm_blocked(coo: BlockCOO, b, c, weighted: bool = True) -> BlockCOO:
     """coo.blocks ⊙ (B @ C) at the nonzero blocks (B @ C there when not
-    ``weighted``); B/C already padded."""
-    return sddmm_blockcoo(coo, b, c, weighted)
+    ``weighted``); B/C already padded.  The dot is rounded to the output
+    dtype before the values multiply it: the unweighted dots times the
+    values, as the reference's ``sddmm_values`` composes them."""
+    return sddmm_blockcoo(coo, b, c, weighted, round_dot=True)
 
 
 def ell_to_coo(ell: BlockELL) -> BlockCOO:

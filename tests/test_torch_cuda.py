@@ -494,9 +494,10 @@ SDDMM_BLOCKS = BLOCKS + [(5, 7), (16, 12)]  # bn 7 and 12: not whole vectors
 def test_sddmm_kernel_without_mask(dev, dtype, block, k):
     """K3 with no mask (every cell of each tile sampled), B and C read
     natively in ``dtype``, against its plain version, in ``dtype`` and
-    in f32; then the weighted launch (A's values as the mask) against the
-    unweighted dots times the values in f32, rounded once: equal bit for
-    bit, since K3 rounds each dot to the output dtype first.  K <= 16 with
+    in f32; then the weighted launch (A's values as the mask) with
+    ``round_dot`` against the unweighted dots times the values in f32,
+    rounded once: equal bit for bit, since that epilogue rounds each dot
+    to the output dtype first.  K <= 16 with
     tile rows of whole 16-byte vectors takes the streaming kernel, the
     rest (K = 17, 48; bn = 7, and 12 in bf16 / f16) the staged one."""
     bm, bn = block
@@ -515,7 +516,8 @@ def test_sddmm_kernel_without_mask(dev, dtype, block, k):
                                    **DTYPE_TOL[out])
     dots = sddmm_blockcoo_kernel(*ops, block=block, out_dtype=dtype)
     vals = coo.blocks.to(dtype)
-    weighted = sddmm_blockcoo_kernel(coo.rows, coo.cols, vals, b, c)
+    weighted = sddmm_blockcoo_kernel(coo.rows, coo.cols, vals, b, c,
+                                     round_dot=True)
     assert weighted.dtype == dtype
     assert torch.equal(weighted, (vals.float() * dots.float()).to(dtype))
 
@@ -2138,3 +2140,71 @@ def test_distributed_spmm_at_world_size_one_is_k1(dev, nccl_one_rank):
         assert spmm_blockell_kernel.launches == 1, fn.__name__
         assert torch.equal(got, want), fn.__name__
 
+
+# ---------------------------------------------------------------------------
+# K3's two epilogues and the deprecated shims
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, *NARROW])
+@pytest.mark.parametrize("block", [(64, 64), (48, 32)])
+@pytest.mark.parametrize("k", [2, 17])
+def test_k3_epilogues_equal_their_plain_versions(dev, dtype, block, k):
+    """K3's weighted launch with each epilogue (round once, the Block-COO
+    entry points'; the dot rounded first, the ``SparseMatrix`` ELL
+    path's) against its plain version on integer B and C (exact f32
+    dots): equal per ``torch.equal`` on the streaming kernel (K = 2) and
+    the staged one (K = 17).  In bf16 / f16 the two epilogues differ
+    somewhere (the dots reach past the dtype's integers); in f32 they
+    agree."""
+    bm, bn = block
+    coo = BlockCOO.from_dense(_sparse(k + 11, 301, 277, 0.1), bm, bn,
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    b = torch.randint(-40, 41, (coo.shape[0], k), generator=gen,
+                      device=dev).to(dtype)
+    c = torch.randint(-40, 41, (k, coo.shape[1]), generator=gen,
+                      device=dev).to(dtype)
+    ops = (coo.rows, coo.cols, coo.blocks.to(dtype), b, c)
+    got = {}
+    for round_dot in (False, True):
+        before = sddmm_blockcoo_kernel.launches
+        got[round_dot] = sddmm_blockcoo_kernel(*ops, round_dot=round_dot)
+        assert sddmm_blockcoo_kernel.launches == before + 1
+        assert torch.equal(got[round_dot],
+                           sddmm_blockcoo_ref(*ops, round_dot=round_dot))
+    assert torch.equal(got[False], got[True]) == (dtype == torch.float32)
+
+
+def test_legacy_keywords_on_the_card(dev):
+    """``core.spmm.spmm`` on CUDA tensors: ``use_kernel=True`` launches K1,
+    ``use_kernel=False`` runs the plain version (no launch), both equal to
+    the plain version; on a CPU tensor ``use_kernel=True`` raises; and
+    ``core.sddmm.sddmm`` launches K3 with the round-once epilogue."""
+    from repro_torch.core.sddmm import sddmm as legacy_sddmm
+    from repro_torch.core.spmm import spmm as legacy_spmm
+
+    a = _sparse(5, 200, 150, 0.1)
+    ell = BlockELL.from_dense(a, 64, 64, device=dev)
+    h = torch.randn(ell.shape[1], 32, device=dev)
+    want = spmm_blockell_ref(ell.indices, ell.blocks, h)
+    for use_kernel, launches in ((True, 1), (False, 0)):
+        before = spmm_blockell_kernel.launches
+        with pytest.warns(DeprecationWarning):
+            y = legacy_spmm(ell, h, use_kernel=use_kernel)
+        assert spmm_blockell_kernel.launches == before + launches
+        torch.testing.assert_close(y, want, **TOL)  # the padded rows too
+    with pytest.warns(DeprecationWarning), \
+            pytest.raises(ValueError, match="cpu"):
+        legacy_spmm(BlockELL.from_dense(a, 64, 64, device="cpu"), h.cpu(),
+                    use_kernel=True)
+    coo = BlockCOO.from_dense(a, 64, 64, device=dev)
+    coo = dataclasses.replace(coo, blocks=coo.blocks.to(torch.bfloat16))
+    b = torch.randint(-40, 41, (coo.shape[0], 2), device=dev).bfloat16()
+    c = torch.randint(-40, 41, (2, coo.shape[1]), device=dev).bfloat16()
+    before = sddmm_blockcoo_kernel.launches
+    with pytest.warns(DeprecationWarning):
+        s = legacy_sddmm(coo, b, c, policy="ell")
+    assert sddmm_blockcoo_kernel.launches == before + 1
+    assert torch.equal(s.blocks, sddmm_blockcoo_ref(
+        coo.rows, coo.cols, coo.blocks, b, c))

@@ -16,12 +16,16 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 # the port's subpackages, each checked by importing it alone
 SUBPACKAGES = ("batch", "configs", "core", "corpus", "data", "dispatch",
-               "ft", "kernels", "models", "obs", "resilience", "serve",
+               "ft", "kernels", "launch", "models", "obs", "resilience",
+               "serve",
                "serve.fleet", "serve.runtime", "sharding", "sparse", "train")
 # modules checked the same way on their own
 MODULES = ("models.transformer", "models.pruning", "serve.engine",
            "train.loop", "train.pipeline", "ft.checkpoint", "ft.resharding",
-           "core.distributed", "sharding.step")
+           "core.distributed", "sharding.step", "runtime", "core.spmm",
+           "core.sddmm", "sparse.legacy", "dispatch.operand",
+           "launch.inputs", "launch.mesh", "launch.serve", "launch.train",
+           "launch.roofline", "launch.dryrun", "launch.report")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -92,9 +96,8 @@ def test_public_surface_matches_reference(sub):
     """``repro_torch.configs``, ``repro_torch.dispatch``,
     ``repro_torch.serve.fleet``, ``repro_torch.sharding`` and
     ``repro_torch.sparse`` export the
-    reference's names (but the deprecated
-    ``SparseOperand``, not ported yet), each bound, and import alone
-    without JAX or ``repro``."""
+    reference's names (the deprecated ``SparseOperand`` too), each bound,
+    and import alone without JAX or ``repro``."""
     import importlib
     import json
 
@@ -109,5 +112,4 @@ def test_public_surface_matches_reference(sub):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     ref = importlib.import_module(f"repro.{sub}")
-    assert json.loads(out.stdout) == sorted(set(ref.__all__)
-                                            - {"SparseOperand"})
+    assert json.loads(out.stdout) == sorted(set(ref.__all__))
