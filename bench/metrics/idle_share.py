@@ -1,0 +1,9 @@
+"""idle_share.<op>: the share of the traced window in which no operation
+ran on the device (kernels, copies and fills, merged), in %."""
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or tr.window_s <= 0 or not tr.device:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s)

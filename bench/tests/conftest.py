@@ -1,0 +1,9 @@
+"""The benchmark's own tests (``python -m pytest bench/tests``): the port
+is imported from ``src/``, the benchmark from the repository root."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
