@@ -14,7 +14,9 @@ The adjacency is one :class:`SparseMatrix` carrying the Block-ELL and
 element forms (plus SELL-C-σ when it is hyper-sparse), so the dispatcher
 can route any of their paths.  GCN weights are a plain dict
 ``{"w": [W_0, ...], "b": [b_0, ...]}`` of tensors (``"b"`` optional),
-GAT weights ``{"w": [...], "a_src": [...], "a_dst": [...]}``.
+GAT weights ``{"w": [...], "a_src": [...], "a_dst": [...]}``.  Each
+layer of either forward runs in one ``gnn.layer`` span (tag ``layer``,
+``repro_torch.obs.tracing``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.paper_gnn import GNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.sparse.matrix import SparseMatrix
@@ -147,18 +150,19 @@ def gcn_forward(params, graph: Graph, x: torch.Tensor, *,
     h = x
     n_layers = len(params["w"])
     for i, w in enumerate(params["w"]):
-        h = h @ w
-        b = biases[i] if biases is not None else None
-        inner = i < n_layers - 1
-        if fuse:
-            h = graph_spmm(graph, h, policy=policy,
-                           epilogue="relu" if inner else None, bias=b)
-        else:
-            h = graph_spmm(graph, h, policy=policy)
-            if b is not None:
-                h = h + b
-            if inner:
-                h = torch.relu(h)
+        with obs.span("gnn.layer", layer=i):
+            h = h @ w
+            b = biases[i] if biases is not None else None
+            inner = i < n_layers - 1
+            if fuse:
+                h = graph_spmm(graph, h, policy=policy,
+                               epilogue="relu" if inner else None, bias=b)
+            else:
+                h = graph_spmm(graph, h, policy=policy)
+                if b is not None:
+                    h = h + b
+                if inner:
+                    h = torch.relu(h)
     return h
 
 
@@ -249,24 +253,25 @@ def gat_forward(params, graph: Graph, x: torch.Tensor, *,
     patt = None if fuse else graph.adj.to("csr").pattern()
     n_layers = len(params["w"])
     for i, w in enumerate(params["w"]):
-        h = h @ w
-        s_src = (h @ params["a_src"][i])[:, 0]  # [N]
-        s_dst = (h @ params["a_dst"][i])[:, 0]
-        # score factors with K = 2: q = [s_src, 1], k = [1, s_dst], so
-        # (q kᵀ)[i, j] = s_src[i] + s_dst[j]
-        q = torch.stack([s_src, torch.ones_like(s_src)], dim=1)
-        if fuse:
-            k = torch.stack([torch.ones_like(s_dst), s_dst], dim=1)
-            h = fused_graph_attention(graph.adj, q, k, h,
-                                      edge_act="leaky_relu",
-                                      negative_slope=0.2, policy=policy,
-                                      candidates=cand or None)
-        else:
-            c = torch.stack([torch.ones_like(s_dst), s_dst], dim=0)
-            e = sample(patt, q, c, policy=policy).data  # [nnz]
-            alpha = _segment_softmax(F.leaky_relu(e, 0.2), graph.row_ids,
-                                     n, graph.adj.form("csr")[1])
-            h = matmul(patt.with_data(alpha), h, policy=policy)
-        if i < n_layers - 1:
-            h = F.elu(h)
+        with obs.span("gnn.layer", layer=i):
+            h = h @ w
+            s_src = (h @ params["a_src"][i])[:, 0]  # [N]
+            s_dst = (h @ params["a_dst"][i])[:, 0]
+            # score factors with K = 2: q = [s_src, 1], k = [1, s_dst], so
+            # (q kᵀ)[i, j] = s_src[i] + s_dst[j]
+            q = torch.stack([s_src, torch.ones_like(s_src)], dim=1)
+            if fuse:
+                k = torch.stack([torch.ones_like(s_dst), s_dst], dim=1)
+                h = fused_graph_attention(graph.adj, q, k, h,
+                                          edge_act="leaky_relu",
+                                          negative_slope=0.2, policy=policy,
+                                          candidates=cand or None)
+            else:
+                c = torch.stack([torch.ones_like(s_dst), s_dst], dim=0)
+                e = sample(patt, q, c, policy=policy).data  # [nnz]
+                alpha = _segment_softmax(F.leaky_relu(e, 0.2), graph.row_ids,
+                                         n, graph.adj.form("csr")[1])
+                h = matmul(patt.with_data(alpha), h, policy=policy)
+            if i < n_layers - 1:
+                h = F.elu(h)
     return h

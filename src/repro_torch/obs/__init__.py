@@ -8,7 +8,11 @@ One import gives every layer the same four instruments:
   process-wide :data:`REGISTRY` (``snapshot()``, ``to_prometheus()``,
   ``to_jsonl()``).
 * ``obs.span(name, **tags)`` — timed spans with parent propagation
-  through the serve and train paths (:data:`TRACER`).
+  through the serve, model, dispatch and train paths (:data:`TRACER`).
+  The ring that keeps them, and ``span_ms``, is off until
+  ``obs.TRACER.enable()``; off, a span costs one shared no-op context,
+  and under ``torch.profiler`` each span is a host event of its trace
+  (``repro_torch.obs.tracing``).
 * :data:`SENTRY` — compiles-vs-calls per executor lane; any compile
   past a lane's warmup is an ``unexpected_retrace`` event (in the
   port a compile is a lane's first call at a new input signature,

@@ -198,12 +198,14 @@ class GNNServingEngine:
     def infer(self, x) -> torch.Tensor:
         """x: [n_nodes, in_features] (numpy or tensor) -> logits
         [n_nodes, n_classes] on the engine's device."""
-        self.n_requests += 1
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        forward = gat_forward if self.scfg.model == "gat" else gcn_forward
-        with torch.no_grad():
-            return forward(self.params, self.graph, x, policy=self._policy,
-                           fuse=self.scfg.fuse)
+        with obs.span("serve.infer"):
+            self.n_requests += 1
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            forward = gat_forward if self.scfg.model == "gat" \
+                else gcn_forward
+            with torch.no_grad():
+                return forward(self.params, self.graph, x,
+                               policy=self._policy, fuse=self.scfg.fuse)
 
     def classify(self, x) -> torch.Tensor:
         return self.infer(x).argmax(dim=-1)

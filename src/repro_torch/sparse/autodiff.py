@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dispatch.dispatcher import Plan, record_plan
 from repro_torch.dispatch.policy import (PATH_CSR, PATH_DENSE, PATH_ELL,
                                          PATH_SELL)
@@ -292,8 +293,9 @@ def _mask_structural(vals: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
 
 
 def _record_vjp(op: str, path: str, reason: str, a: SparseMatrix) -> None:
-    record_plan(Plan(op=op, path=path, policy="vjp", reason=reason,
-                     use_kernel=a.device.type == "cuda"))
+    with obs.span("sparse.dispatch"):
+        record_plan(Plan(op=op, path=path, policy="vjp", reason=reason,
+                         use_kernel=a.device.type == "cuda"))
 
 
 def _form_broadcast_rows(a: SparseMatrix, form_name: str,

@@ -13,6 +13,8 @@ paths follow the forms a matrix carries (``ell`` needs an ``ell`` or
 available.  Each op runs through
 its ``torch.autograd.Function`` (``repro_torch.sparse.autodiff``), so
 ``loss.backward()`` differentiates through the SpMM <-> SDDMM duality.
+Each op's front end, from its entry to that Function's ``apply``, is one
+``sparse.dispatch`` span (``repro_torch.obs.tracing``).
 
 ``matmul``, ``spmv`` and ``sddmm`` take the reference's ``use_kernel`` /
 ``interpret`` / ``bd`` (``bk``) / ``out_dtype`` keywords: the first two
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dispatch.autotune import AutotuneCache
 from repro_torch.dispatch.cost_model import DEFAULT_COST_MODEL, CostModel
 from repro_torch.dispatch.dispatcher import (Plan, autotune_plan, on_cuda,
@@ -154,17 +157,41 @@ def matmul(
     1-D or 2-D tensor on the matrix's device; a 1-D ``H`` with no tail
     takes the SpMV lane (``spmv``).
     """
-    if not isinstance(a, SparseMatrix):
-        raise TypeError(f"matmul expects a SparseMatrix, got {type(a)}")
-    _check_operand("spmm: H", h, a)
-    check_front_end_kwargs(use_kernel, interpret, a.device)
-    h_was_1d = h.ndim == 1
-    if h_was_1d and epilogue is None and bias is None and residual is None:
+    with obs.span("sparse.dispatch"):
+        if not isinstance(a, SparseMatrix):
+            raise TypeError(f"matmul expects a SparseMatrix, got {type(a)}")
+        _check_operand("spmm: H", h, a)
+        check_front_end_kwargs(use_kernel, interpret, a.device)
+        h_was_1d = h.ndim == 1
+        as_spmv = h_was_1d and epilogue is None and bias is None \
+            and residual is None
+        if not as_spmv:
+            plan, h, epi, bias, residual = _plan_spmm(
+                a, h, epilogue, bias, residual, policy, candidates,
+                cost_model, config, autotune_cache)
+            vals = autodiff.read_values(a, plan.path)
+    if as_spmv:
         return spmv(a, h, policy=policy, candidates=candidates,
                     use_kernel=use_kernel, interpret=interpret,
                     out_dtype=out_dtype, cost_model=cost_model,
                     config=config, autotune_cache=autotune_cache)
-    if h_was_1d:
+    if epi is None:
+        y = autodiff.SpMM.apply(plan.path, a, vals, h)
+    else:
+        y = autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
+                                        residual)
+    y = in_out_dtype(y, out_dtype)
+    return y[:, 0] if h_was_1d else y
+
+
+def _plan_spmm(a: SparseMatrix, h: torch.Tensor, epilogue, bias, residual,
+               policy: str, candidates, cost_model: CostModel,
+               config: DispatchConfig,
+               autotune_cache: Optional[AutotuneCache]):
+    """``matmul``'s 2-D lane up to its ``apply``: the operands checked and
+    made contiguous, the epilogue normalised, the plan resolved and
+    recorded.  Returns ``(plan, h, epi, bias, residual)``."""
+    if h.ndim == 1:
         h = h[:, None]
         if residual is not None and residual.ndim == 1:
             residual = residual[:, None]
@@ -208,14 +235,7 @@ def matmul(
                          key_extra=() if epi is None else (epi,),
                          fused=None if epi is None else epi.describe())
     record_plan(plan)
-    vals = autodiff.read_values(a, plan.path)
-    if epi is None:
-        y = autodiff.SpMM.apply(plan.path, a, vals, h)
-    else:
-        y = autodiff.SpMMEpilogue.apply(plan.path, epi, a, vals, h, bias,
-                                        residual)
-    y = in_out_dtype(y, out_dtype)
-    return y[:, 0] if h_was_1d else y
+    return plan, h, epi, bias, residual
 
 
 # ---------------------------------------------------------------------------
@@ -243,25 +263,28 @@ def spmv(
     (``paths.spmv_*``); ``matmul`` delegates its 1-D branch here.
     Differentiable (``autodiff.SpMV``): dx = Aᵀ ḡ, dA a rank-1 SDDMM.
     """
-    if not isinstance(a, SparseMatrix):
-        raise TypeError(f"spmv expects a SparseMatrix, got {type(a)}")
-    _check_operand("spmv: x", x, a)
-    check_front_end_kwargs(use_kernel, interpret, a.device)
-    if x.ndim != 1:
-        raise ValueError(f"spmv: x must be 1-D, got shape {tuple(x.shape)}")
-    if x.shape[0] != a.shape[1]:
-        raise ValueError(
-            f"spmv: x has {x.shape[0]} rows but A has {a.shape[1]} "
-            f"columns (A shape {a.shape})")
-    policy = normalize_policy(policy)
-    cand = tuple(candidates) if candidates else available_paths(a)
-    x = x.contiguous()
-    plan = _resolve_plan("spmv", a, 1, x.dtype, policy, cand, cost_model,
-                         config, autotune_cache,
-                         lambda p: lambda: autodiff.spmv_exec(p, a, x))
-    record_plan(plan)
-    return in_out_dtype(autodiff.SpMV.apply(
-        plan.path, a, autodiff.read_values(a, plan.path), x), out_dtype)
+    with obs.span("sparse.dispatch"):
+        if not isinstance(a, SparseMatrix):
+            raise TypeError(f"spmv expects a SparseMatrix, got {type(a)}")
+        _check_operand("spmv: x", x, a)
+        check_front_end_kwargs(use_kernel, interpret, a.device)
+        if x.ndim != 1:
+            raise ValueError(
+                f"spmv: x must be 1-D, got shape {tuple(x.shape)}")
+        if x.shape[0] != a.shape[1]:
+            raise ValueError(
+                f"spmv: x has {x.shape[0]} rows but A has {a.shape[1]} "
+                f"columns (A shape {a.shape})")
+        policy = normalize_policy(policy)
+        cand = tuple(candidates) if candidates else available_paths(a)
+        x = x.contiguous()
+        plan = _resolve_plan("spmv", a, 1, x.dtype, policy, cand, cost_model,
+                             config, autotune_cache,
+                             lambda p: lambda: autodiff.spmv_exec(p, a, x))
+        record_plan(plan)
+        vals = autodiff.read_values(a, plan.path)
+    return in_out_dtype(autodiff.SpMV.apply(plan.path, a, vals, x),
+                        out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -291,29 +314,32 @@ def sddmm(
     sampled values (element order for the csr path, what GAT's segment
     softmax consumes).  ``b`` [M, K] and ``c`` [K, N] lie on A's device.
     """
-    if not isinstance(a, SparseMatrix):
-        raise TypeError(f"sddmm expects a SparseMatrix, got {type(a)}")
-    _check_operand("sddmm: B", b, a)
-    _check_operand("sddmm: C", c, a)
-    check_front_end_kwargs(use_kernel, interpret, a.device)
-    if b.shape[0] != a.shape[0]:
-        raise ValueError(
-            f"sddmm: B has {b.shape[0]} rows but A has {a.shape[0]}")
-    if c.shape[1] != a.shape[1]:
-        raise ValueError(
-            f"sddmm: C has {c.shape[1]} columns but A has {a.shape[1]}")
-    if b.shape[1] != c.shape[0]:
-        raise ValueError(
-            f"sddmm: inner dims disagree: B {tuple(b.shape)} vs C "
-            f"{tuple(c.shape)}")
-    policy = normalize_policy(policy)
-    cand = tuple(candidates) if candidates else available_paths(a)
-    plan = _resolve_plan("sddmm", a, b.shape[1], b.dtype, policy, cand,
-                         cost_model, config, autotune_cache,
-                         lambda p: lambda: autodiff.sddmm_values(p, a, b, c))
-    record_plan(plan)
-    vals = in_out_dtype(autodiff.SDDMMValues.apply(
-        plan.path, a, autodiff.read_values(a, plan.path), b, c), out_dtype)
+    with obs.span("sparse.dispatch"):
+        if not isinstance(a, SparseMatrix):
+            raise TypeError(f"sddmm expects a SparseMatrix, got {type(a)}")
+        _check_operand("sddmm: B", b, a)
+        _check_operand("sddmm: C", c, a)
+        check_front_end_kwargs(use_kernel, interpret, a.device)
+        if b.shape[0] != a.shape[0]:
+            raise ValueError(
+                f"sddmm: B has {b.shape[0]} rows but A has {a.shape[0]}")
+        if c.shape[1] != a.shape[1]:
+            raise ValueError(
+                f"sddmm: C has {c.shape[1]} columns but A has {a.shape[1]}")
+        if b.shape[1] != c.shape[0]:
+            raise ValueError(
+                f"sddmm: inner dims disagree: B {tuple(b.shape)} vs C "
+                f"{tuple(c.shape)}")
+        policy = normalize_policy(policy)
+        cand = tuple(candidates) if candidates else available_paths(a)
+        plan = _resolve_plan("sddmm", a, b.shape[1], b.dtype, policy, cand,
+                             cost_model, config, autotune_cache,
+                             lambda p: lambda: autodiff.sddmm_values(
+                                 p, a, b, c))
+        record_plan(plan)
+        vals = autodiff.read_values(a, plan.path)
+    vals = in_out_dtype(autodiff.SDDMMValues.apply(plan.path, a, vals, b,
+                                                   c), out_dtype)
     return single_form(a, autodiff.form_read_by(a, plan.path), vals)
 
 
@@ -352,45 +378,46 @@ def fused_graph_attention(
     column), ``v``: [N, D] values (a 1-D ``v`` gives a 1-D result).  A
     contributes its structural nonzeros only (values are not read).
     """
-    if not isinstance(a, SparseMatrix):
-        raise TypeError(
-            f"fused_graph_attention expects a SparseMatrix, got {type(a)}")
-    for what, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(f"fused_graph_attention: {what}", x, a)
-    if q.ndim == 1:
-        q = q[:, None]
-    if k.ndim == 1:
-        k = k[:, None]
-    v_was_1d = v.ndim == 1
-    if v_was_1d:
-        v = v[:, None]
-    if q.shape[0] != a.shape[0]:
-        raise ValueError(
-            f"fused_graph_attention: q has {q.shape[0]} rows but A has "
-            f"{a.shape[0]}")
-    if k.shape[0] != a.shape[1]:
-        raise ValueError(
-            f"fused_graph_attention: k has {k.shape[0]} rows but A has "
-            f"{a.shape[1]} columns")
-    if v.shape[0] != a.shape[1]:
-        raise ValueError(
-            f"fused_graph_attention: v has {v.shape[0]} rows but A has "
-            f"{a.shape[1]} columns")
-    if q.shape[1] != k.shape[1]:
-        raise ValueError(
-            f"fused_graph_attention: score widths disagree: q "
-            f"{tuple(q.shape)} vs k {tuple(k.shape)}")
-    policy = normalize_policy(policy)
-    cand = tuple(candidates) if candidates else available_paths(a)
-    slope = float(negative_slope)
-    plan = _resolve_plan(
-        PATH_FUSED_ATTN, a, (q.shape[1], v.shape[1]), q.dtype, policy, cand,
-        cost_model, config, autotune_cache,
-        lambda p: lambda: autodiff.fused_attention_exec(p, a, q, k, v,
-                                                        edge_act, slope),
-        key_extra=(edge_act, slope), fused="attn")
-    record_plan(plan)
-    y = autodiff.FusedAttention.apply(plan.path, a,
-                                      autodiff.read_values(a, plan.path), q, k,
-                                      v, edge_act, slope)
+    with obs.span("sparse.dispatch"):
+        if not isinstance(a, SparseMatrix):
+            raise TypeError(
+                f"fused_graph_attention expects a SparseMatrix, got {type(a)}")
+        for what, x in (("q", q), ("k", k), ("v", v)):
+            _check_operand(f"fused_graph_attention: {what}", x, a)
+        if q.ndim == 1:
+            q = q[:, None]
+        if k.ndim == 1:
+            k = k[:, None]
+        v_was_1d = v.ndim == 1
+        if v_was_1d:
+            v = v[:, None]
+        if q.shape[0] != a.shape[0]:
+            raise ValueError(
+                f"fused_graph_attention: q has {q.shape[0]} rows but A has "
+                f"{a.shape[0]}")
+        if k.shape[0] != a.shape[1]:
+            raise ValueError(
+                f"fused_graph_attention: k has {k.shape[0]} rows but A has "
+                f"{a.shape[1]} columns")
+        if v.shape[0] != a.shape[1]:
+            raise ValueError(
+                f"fused_graph_attention: v has {v.shape[0]} rows but A has "
+                f"{a.shape[1]} columns")
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(
+                f"fused_graph_attention: score widths disagree: q "
+                f"{tuple(q.shape)} vs k {tuple(k.shape)}")
+        policy = normalize_policy(policy)
+        cand = tuple(candidates) if candidates else available_paths(a)
+        slope = float(negative_slope)
+        plan = _resolve_plan(
+            PATH_FUSED_ATTN, a, (q.shape[1], v.shape[1]), q.dtype, policy,
+            cand, cost_model, config, autotune_cache,
+            lambda p: lambda: autodiff.fused_attention_exec(p, a, q, k, v,
+                                                            edge_act, slope),
+            key_extra=(edge_act, slope), fused="attn")
+        record_plan(plan)
+        vals = autodiff.read_values(a, plan.path)
+    y = autodiff.FusedAttention.apply(plan.path, a, vals, q, k, v,
+                                      edge_act, slope)
     return y[:, 0] if v_was_1d else y

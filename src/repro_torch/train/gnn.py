@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.paper_gnn import CONFIG, GNNConfig
 from repro_torch.data.pipeline import random_graph
 from repro_torch.device import resolve_device
@@ -77,10 +78,12 @@ def loss_and_grads(params: Params, graph: Graph, x: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
     """Forward and backward of one full batch: (loss, accuracy, the
     gradients in ``params``' layout)."""
-    logits = FORWARD[kind](params, graph, x, fuse=fuse)
-    nll, acc = nll_and_accuracy(logits, labels)
-    grads = iter(torch.autograd.grad(
-        nll, [p for _, p in named_parameters(params)]))
+    with obs.span("train.forward"):
+        logits = FORWARD[kind](params, graph, x, fuse=fuse)
+        nll, acc = nll_and_accuracy(logits, labels)
+    with obs.span("train.backward"):
+        grads = iter(torch.autograd.grad(
+            nll, [p for _, p in named_parameters(params)]))
     return nll.detach(), acc, {key: [next(grads) for _ in params[key]]
                                for key in sorted(params)}
 
@@ -96,10 +99,14 @@ def sgd_update(params: Params, grads: Params, lr: float) -> None:
 def train_step(params: Params, graph: Graph, x: torch.Tensor,
                labels: torch.Tensor, *, kind: str = "gcn", lr: float = 0.05,
                fuse: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One full-batch SGD step; returns the loss and accuracy before it."""
-    loss, acc, grads = loss_and_grads(params, graph, x, labels, kind=kind,
-                                      fuse=fuse)
-    sgd_update(params, grads, lr)
+    """One full-batch SGD step; returns the loss and accuracy before it.
+    The step is a ``train.step`` span holding ``train.forward``,
+    ``train.backward`` and ``train.update``."""
+    with obs.span("train.step"):
+        loss, acc, grads = loss_and_grads(params, graph, x, labels,
+                                          kind=kind, fuse=fuse)
+        with obs.span("train.update"):
+            sgd_update(params, grads, lr)
     return loss, acc
 
 

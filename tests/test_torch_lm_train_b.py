@@ -122,9 +122,13 @@ def test_train_state_from_numpy_round_trip():
 
 @pytest.fixture
 def _clean():
+    """Empty instruments, no chaos plan, and the span ring on (the loop's
+    ``train.step`` spans are read back)."""
     obs.reset()
     chaos.uninstall()
+    obs.TRACER.enable()
     yield
+    obs.TRACER.disable()
     obs.reset()
     chaos.uninstall()
 

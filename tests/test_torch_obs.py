@@ -33,10 +33,13 @@ BLOCK = (16, 16)
 
 @pytest.fixture(autouse=True)
 def _fresh_obs():
-    """Every test sees empty process-wide instruments in both packages."""
+    """Every test sees empty process-wide instruments in both packages,
+    with the port's span ring on (the reference's always records)."""
     obs.reset()
     j_obs.reset()
+    obs.TRACER.enable()
     yield
+    obs.TRACER.disable()
     obs.reset()
     j_obs.reset()
 
