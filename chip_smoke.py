@@ -127,12 +127,14 @@ Phases, each of which must pass or the script exits non-zero:
      are asserted (``TRAIN_LAUNCHES``; they join the kernel rows'
      launches).  The step held to the oracle is run once more, without
      ``torch.use_deterministic_algorithms``, and every gradient must be
-     equal per ``torch.equal``.  On (a), GAT's first-step gradients must
-     also equal, per ``torch.equal``, those of the every-cell route
-     (``PATTERN_MIN_K`` out of reach, so every sampled product runs K3
-     without a mask), without and with deterministic mode.  Then the
-     backward's kernels at their own shapes, each held to its plain
-     version beside its bound and its library call: the SDDMM at K = 128
+     equal per ``torch.equal``.  On (a), GAT's first-step gradients
+     through K7b must lie within the oracle's tolerance of the composed
+     rule's (``PATTERN_MIN_K`` at 0: K3p x6 + K1 x3), each route equal to
+     itself without and with deterministic mode.  Then the backward's
+     kernels at their own shapes, each held to its plain version beside
+     its bound and its library call: on (a) K7b at dk = 2 and D = 128 and
+     16 (its bound the two stores of α and de; no library call; two
+     launches equal); the SDDMM at K = 128
      (dα = ḡ Vᵀ) against ``sampled_addmm`` (on (a) K3 at the pattern, the
      step's launch with C a transposed view, its bound counted from the
      nonzeros, beside K3's staged kernel on every cell, the two equal at
@@ -435,17 +437,17 @@ GRAD_TOL_SHARE = 1e-2
 # to the oracle all the same
 LOSS_FLAT = {("ell", "gcn")}
 # kernel launches one training step makes, per graph path and model: the
-# forward's (K5 x2 + K1, K6 x2 + K2, K7 / K8 x3), GAT's backward K3 / K4
-# twice a layer (the score recompute at K = 2 and dα at K = D: 128, 128,
-# 16) and K1 / K2 once (dq); on (a) the sampling at K >= PATTERN_MIN_K
-# (dα) runs K3 at the pattern (K3p), the score recompute K3's streaming
-# kernel; every transposed product runs N1 on (a) and K2 over Aᵀ's row
-# view on (b): GCN's dH once a layer, GAT's dk and dV once a layer each;
-# A's values take no gradient, so no dA is sampled
+# forward's (K5 x2 + K1, K6 x2 + K2, K7 / K8 x3); GAT's backward on (a)
+# K7b once a layer (the score recompute at dk = 2, dα at D = 128, 128, 16,
+# the softmax JVP and dq in one launch: dk < PATTERN_MIN_K), on (b) K4
+# twice a layer (the score recompute and dα) and K2 once (dq); every
+# transposed product runs N1 on (a) and K2 over Aᵀ's row view on (b):
+# GCN's dH once a layer, GAT's dk and dV once a layer each; A's values
+# take no gradient, so no dA is sampled
 TRAIN_LAUNCHES = {
     ("ell", "gcn"): {"K5": 2, "K1": 1, "N1": 3},
     ("sell", "gcn"): {"K6": 2, "K2": 4},
-    ("ell", "gat"): {"K7": 3, "K3": 3, "K3p": 3, "K1": 3, "N1": 6},
+    ("ell", "gat"): {"K7": 3, "K7b": 3, "N1": 6},
     ("sell", "gat"): {"K8": 3, "K4": 6, "K2": 9},
 }
 SEED = 0
@@ -480,6 +482,10 @@ KERNELS = {
            "src/repro/kernels/fused/attention.py:99"),
     "K8": ("fused_attn_sell_kernel", "src/repro_torch/csrc/fused_attention.cu",
            "src/repro/kernels/fused/attention.py:281"),
+    # no Pallas kernel: the reference's jnp chain it takes the place of
+    "K7b": ("fused_attn_blockell_bwd_kernel",
+            "src/repro_torch/csrc/fused_attention_bwd.cu",
+            "src/repro/sparse/autodiff.py:547"),
     "K9": ("bsattn_kernel", "src/repro_torch/csrc/bsattn.cu",
            "src/repro/kernels/bsattn/kernel.py:93"),
     # no Pallas kernel: the reference's jnp route it takes the place of
@@ -707,6 +713,7 @@ class Port:
             "K4": sddmm_sell.sddmm_sell_kernel,
             "K7": attention.fused_attn_blockell_kernel,
             "K8": attention.fused_attn_sell_kernel,
+            "K7b": attention.fused_attn_blockell_bwd_kernel,
             "K9": bsattn_kernel.bsattn_kernel,
             "N1": transposed.spmm_blockell_t_kernel,
         }
@@ -2036,8 +2043,7 @@ def train_phase(torch, np, port, graph, adj, x_np, label, want_path):
         same_bits_again(torch, port, params, graph, x, labels, kind, grads,
                         per_step, what)
         if (want_path, kind) == ("ell", "gat"):
-            every_cell_grads_equal(torch, port, params, graph, x, labels,
-                                   what)
+            k7b_grads_close(torch, port, params, graph, x, labels, what)
         port.train.sgd_update(params, grads, TRAIN_LR)
         del grads, want_grads
         for k, v in counts.items():
@@ -2108,18 +2114,19 @@ def same_bits_again(torch, port, params, graph, x, labels, kind, grads,
         f"equal gradients, torch.equal, all {len(named(grads))} parameters")
 
 
-def every_cell_grads_equal(torch, port, params, graph, x, labels, what):
-    """The first step's gradients through the pattern route and through
-    the every-cell route (``PATTERN_MIN_K`` out of reach: every sampled
-    product on K3 without a mask), equal per ``torch.equal``: without
-    deterministic mode (every transposed product runs N1), and again
-    under ``torch.use_deterministic_algorithms`` (warnings only).  Their
-    launches are checked, not counted."""
+def k7b_grads_close(torch, port, params, graph, x, labels, what):
+    """The first step's gradients through K7b and through the composed
+    rule (``PATTERN_MIN_K`` at 0 turns K7b off: the score recompute and dα
+    on K3p, dq on K1), each parameter's within ``ORACLE_RTOL`` x its
+    max|composed| + ``GRAD_ATOL`` (the dense oracle's tolerance: dq and
+    the row sums l are summed in another order); each route run without
+    and with ``torch.use_deterministic_algorithms`` (warnings only), equal
+    per ``torch.equal``.  Their launches are checked, not counted."""
     autodiff = port.autodiff
     min_k = autodiff.PATTERN_MIN_K
-    expect = {"pattern": expected(port, TRAIN_LAUNCHES["ell", "gat"], 1),
-              "every cell": expected(port, {"K7": 3, "K3": 6, "K1": 3,
-                                            "N1": 6}, 1)}
+    expect = {"K7b": expected(port, TRAIN_LAUNCHES["ell", "gat"], 1),
+              "composed": expected(port, {"K7": 3, "K3p": 6, "K1": 3,
+                                          "N1": 6}, 1)}
     was = torch.are_deterministic_algorithms_enabled()
     grads = {}
     try:
@@ -2127,8 +2134,7 @@ def every_cell_grads_equal(torch, port, params, graph, x, labels, what):
             torch.use_deterministic_algorithms(mode, warn_only=True)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                for route, k in (("pattern", min_k),
-                                 ("every cell", 1 << 30)):
+                for route, k in (("K7b", min_k), ("composed", 0)):
                     autodiff.PATTERN_MIN_K = k
                     port.reset_counts()
                     grads[route, mode] = port.train.loss_and_grads(
@@ -2141,15 +2147,27 @@ def every_cell_grads_equal(torch, port, params, graph, x, labels, what):
         autodiff.PATTERN_MIN_K = min_k
         torch.use_deterministic_algorithms(was)
     named = port.train.named_parameters
-    want = named(grads["pattern", False])
-    bad = [(key, name) for key in grads
-           for (name, g), (_, w) in zip(named(grads[key]), want)
+    bad = [(route, name) for route in ("K7b", "composed")
+           for (name, g), (_, w) in zip(named(grads[route, True]),
+                                        named(grads[route, False]))
            if not torch.equal(g, w)]
     if bad:
-        raise AssertionError(f"{what}: the routes' gradients differ: {bad}")
-    log(f"{what}: first-step gradients of the pattern route (K3p x3 + K3 "
-        "x3) equal those of the every-cell route (K3 x6), torch.equal, "
-        "every parameter, without and with deterministic mode")
+        raise AssertionError(f"{what}: a route's gradients moved under "
+                             f"deterministic mode: {bad}")
+    errs = []
+    for (name, g), (_, w) in zip(named(grads["K7b", False]),
+                                 named(grads["composed", False])):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        errs.append(f"{name} {err:.2e} (max|want| {scale:.3e})")
+        if not err <= ORACLE_RTOL * scale + GRAD_ATOL:
+            bad.append(name)
+    log(f"{what}: first-step gradients through K7b (K7b x3) against the "
+        "composed rule (K3p x6 + K1 x3), each route equal to itself under "
+        "deterministic mode: " + ", ".join(errs))
+    if bad:
+        raise AssertionError(f"{what}: K7b's gradients off the composed "
+                             f"rule's: {bad}")
 
 
 def profile_step(torch, port, step, per_step, what):
@@ -2255,6 +2273,58 @@ def pattern_rows(torch, port, graph, a_lib, gen):
     return rows
 
 
+def k7b_rows(torch, port, graph, gen):
+    """On (a): K7b at the step's shapes (dk = 2; D = 128, then 16: q, k,
+    V, ḡ and rowdot drawn, kᵀ a view of k, the matrix's memoized
+    occupancy), launched twice for equal bits, held to its plain version
+    and timed beside it and its bound: the two stores of α and de (every
+    cell of every slot, f32) with the pattern's bits, the operands and dq
+    once, or the nonzeros' 2 (D + 2 dk) FLOP.  Returns the D = 128 row,
+    D = 16's under ``"D=16"``."""
+    dev = torch.device(DEVICE)
+    n, dk = graph.n_nodes, 2
+    ell = graph.adj.form("ell")
+    occ = graph.adj.tile_occupancy()
+    nnz = int((ell.blocks != 0).sum())
+    att = port.attention
+
+    def close(name, got, want):
+        """α and de to ``KERNEL_TOL``; dq, a sum of a row's de k terms in
+        another order than the plain version's ``spmm_blockell_ref``, as
+        ``ell_sums_close`` holds K1."""
+        errs = [check_close(torch, f"{name} {part}", x, y)
+                for part, x, y in zip(("alpha", "de"), got, want)]
+        return max(errs + [ell_sums_close(
+            torch, port, f"{name} dq", got[2], want[2],
+            (ell.indices, want[1], port.paths.pad_rows(k, ell.shape[1])))])
+
+    row = None
+    for d in (port.cfg.hidden, port.cfg.n_classes):
+        q, k = (torch.randn(n, dk, device=dev, generator=gen)
+                for _ in range(2))
+        v, g = (torch.randn(n, d, device=dev, generator=gen)
+                for _ in range(2))
+        ops = (occ, q, k.T, v, g, torch.randn(n, device=dev, generator=gen))
+        run = lambda: att.fused_attn_blockell_bwd(ell, *ops)  # noqa: E731
+        first, again = run(), run()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"K7b at D={d}: two launches differ")
+        del first, again
+        got = measure(
+            torch, f"K7b at D={d}, dk={dk} (the attention backward's chain)",
+            run, lambda: att.fused_attn_blockell_bwd_ref(  # noqa: E731
+                ell.indices, *ops, block=(ell.bm, ell.bn)), None,
+            nbytes_of(ell.indices, *ops) + 2 * ell.blocks.numel() * 4
+            + n * dk * 4, 2 * nnz * (d + 2 * dk),
+            f"nbr={ell.n_block_rows} W={ell.ell_width} D={d}; {nnz} "
+            "nonzeros; two launches equal; no library call", close=close)
+        if row is None:
+            row = got
+        else:
+            row[f"D={d}"] = got
+    return {"K7b": row}
+
+
 def backward_rows(torch, port, graph, want_path):
     """The kernels at the shapes a training step gives them, each held to
     its plain version beside its bound and its library call: the SDDMM
@@ -2275,6 +2345,7 @@ def backward_rows(torch, port, graph, want_path):
     if want_path == "ell":
         ell = graph.adj.form("ell")
         rows.update(pattern_rows(torch, port, graph, a_lib, gen))
+        rows.update(k7b_rows(torch, port, graph, gen))
         hp = paths.pad_rows(h2, ell.shape[1])
         args = (ell.indices, ell.blocks, hp)
         nnz = int((ell.blocks != 0).sum())
@@ -2914,7 +2985,7 @@ def serve_graph(torch, np, port, label, adj, want_path, expect):
     launches = train_phase(torch, np, port, graph, adj, xs[0], label,
                            want_path)
     backward = backward_rows(torch, port, graph, want_path)
-    for name in ("K3p", "N1"):  # rows at the backward's shapes
+    for name in ("K3p", "N1", "K7b"):  # rows at the backward's shapes
         if name in backward:
             rows[name] = dict(backward[name], launches=0)
     for name, count in launches.items():

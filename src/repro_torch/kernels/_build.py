@@ -27,7 +27,7 @@ from repro_torch.resilience.errors import KernelError
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("spmm_blockell", "spmm_blockell_t", "spmm_sell", "sddmm",
-           "fused_attention", "bsattn")
+           "fused_attention", "fused_attention_bwd", "bsattn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "fused_attn_sell": ("fused_attn_sell",
                         [_I, _I] + [_P] * 7 + [_I, _I, _P, _P] + [_I] * 7
                         + [_F, _P]),
+    "fused_attention_bwd": ("fused_attn_blockell_bwd",
+                            [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I] * 9
+                            + [_F, _P]),
     "bsattn": ("bsattn_fwd", [_P] * 6 + [_I] * 9 + [_F, _I, _P]),
 }
 _SOURCE = {"sddmm_sell_slots": "sddmm", "sddmm_pattern": "sddmm",

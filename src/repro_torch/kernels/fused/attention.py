@@ -178,6 +178,127 @@ def fused_attn_blockell(ell: BlockELL, q, kt, v, *, act: str = "leaky_relu",
                                       act=act, slope=slope)
 
 
+# ---------------------------------------------------------------------------
+# Block-ELL fused attention backward (K7b)
+# ---------------------------------------------------------------------------
+
+
+def fused_attn_blockell_bwd_ref(indices, occupancy, q, kt, v, g, rowdot, *,
+                                block: Tuple[int, int],
+                                act: str = "leaky_relu", slope: float = 0.2):
+    """Plain version of K7b: the attention backward's per-edge chain over a
+    Block-ELL pattern, as the composed rule runs it on the ell path.
+
+    ``indices`` [nbr, W] and ``occupancy`` (``pack_occupancy`` of the
+    blocks [nbr, W, bm, bn], ``block`` = (bm, bn)) give the pattern; ``q``
+    [M, dk], ``kt`` [dk, N], ``v`` [N, D], ``g`` [M, D] (ḡ) and ``rowdot``
+    [M] (Σ_d ḡ·out) carry logical shapes.  Returns (α, de, dq): α = the
+    row softmax of act(q kᵀ) at the pattern, de = α ⊙ (ḡ Vᵀ − rowdot) ⊙
+    act'(q kᵀ), both f32 [nbr, W, bm, bn] and exact 0 off the pattern,
+    and dq = de k, f32 [M, dk]."""
+    from repro_torch.kernels.fused.epilogue import act_grad_from_out
+    from repro_torch.kernels.sddmm.ref import (tile_products,
+                                               unpack_occupancy)
+    from repro_torch.kernels.spmm.ref import spmm_blockell_ref
+
+    nbr, w = indices.shape
+    bm, bn = block
+    m, n = q.shape[0], v.shape[0]
+    mp, np_ = nbr * bm, -(-n // bn) * bn
+    rows = torch.arange(nbr, dtype=torch.int32,
+                        device=indices.device).repeat_interleave(w)
+    cols = indices.reshape(-1)
+    q = F.pad(q.float(), (0, 0, 0, mp - m))
+    k = F.pad(kt.T.float(), (0, 0, 0, np_ - n))
+    shape = (nbr, w, bm, bn)
+    mask = unpack_occupancy(occupancy, bn).reshape(shape)
+    raw = tile_products(rows, cols, q, k.T, bm, bn).reshape(shape)
+    e = torch.where(mask, apply_act(raw, act, slope), NEG_INF)
+    mx = e.amax(dim=(1, 3))
+    alpha = e.sub_(mx[:, None, :, None]).exp_().mul_(mask)
+    alpha.div_(alpha.sum(dim=(1, 3)).clamp_min(EPS)[:, None, :, None])
+    dalpha = tile_products(rows, cols, F.pad(g.float(), (0, 0, 0, mp - m)),
+                           F.pad(v.float(), (0, 0, 0, np_ - n)).T, bm, bn)
+    de = torch.where(mask, dalpha.reshape(shape), 0.0)
+    de.sub_(F.pad(rowdot.float(), (0, mp - m)).reshape(nbr, 1, bm, 1))
+    de.mul_(alpha).mul_(act_grad_from_out(raw, act, slope)).mul_(mask)
+    dq = spmm_blockell_ref(indices, de, k)[:m]
+    return alpha, de, dq
+
+
+def launch_blockell_attention_bwd(indices, occupancy, q, kt, v, g, rowdot,
+                                  block: Tuple[int, int], act: str,
+                                  slope: float):
+    """Check the operands and launch K7b (``csrc/fused_attention_bwd.cu``)
+    on the current stream; returns (α, de, dq) as the plain version does.
+    ``kt`` may be any strided view (``k.T`` needs no copy); narrow operands
+    are widened to f32 first, exactly."""
+    dev = v.device
+    nbr, w = indices.shape
+    bm, bn = block
+    m, dk = q.shape
+    n, d = v.shape
+    check_geometry(bm, bn, -(-n // bn) * bn)
+    if m > nbr * bm:
+        raise ValueError(f"q has {m} rows, the pattern {nbr * bm}")
+    check_operand(indices, "indices", torch.int32, (nbr, w), dev)
+    check_operand(occupancy, "occupancy", torch.int32,
+                  (nbr * w, bm, -(-bn // 32)), dev)
+    for t, name, shape in ((q, "q", (m, dk)), (kt, "kt", (dk, n)),
+                           (v, "v", (n, d)), (g, "g", (m, d)),
+                           (rowdot, "rowdot", (m,))):
+        check_operand(t, name, None, shape, dev, contiguous=False)
+    result_dtype(q, kt, v, g, rowdot)  # raises on a dtype it does not take
+    q, v, g, rowdot = (t.float().contiguous() for t in (q, v, g, rowdot))
+    kt = kt.float()
+    alpha = torch.empty((nbr, w, bm, bn), dtype=torch.float32, device=dev)
+    de = torch.empty_like(alpha)
+    dq = torch.empty((m, dk), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.entry("fused_attention_bwd")(
+            indices.data_ptr(), occupancy.data_ptr(), q.data_ptr(),
+            kt.data_ptr(), kt.stride(0), kt.stride(1), v.data_ptr(),
+            g.data_ptr(), rowdot.data_ptr(), alpha.data_ptr(),
+            de.data_ptr(), dq.data_ptr(), nbr, w, bm, bn, dk, m, n, d,
+            ACT_CODES[act], float(slope),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K7b fused_attn_blockell_bwd")
+    return alpha, de, dq
+
+
+def fused_attn_blockell_bwd_kernel(indices: torch.Tensor,
+                                   occupancy: torch.Tensor, q: torch.Tensor,
+                                   kt: torch.Tensor, v: torch.Tensor,
+                                   g: torch.Tensor, rowdot: torch.Tensor, *,
+                                   block: Tuple[int, int],
+                                   act: str = "leaky_relu",
+                                   slope: float = 0.2):
+    """K7b: (α, de, dq) of the fused attention's backward over a Block-ELL
+    pattern in one launch (``fused_attn_blockell_bwd_ref``'s function)."""
+    if v.device.type == "cpu":
+        return fused_attn_blockell_bwd_ref(indices, occupancy, q, kt, v, g,
+                                           rowdot, block=block, act=act,
+                                           slope=slope)
+    require_cuda(v, "fused_attn_blockell_bwd_kernel")
+    out = launch_blockell_attention_bwd(indices, occupancy, q, kt, v, g,
+                                        rowdot, block, act, slope)
+    fused_attn_blockell_bwd_kernel.launches += 1
+    return out
+
+
+fused_attn_blockell_bwd_kernel.launches = 0
+
+
+def fused_attn_blockell_bwd(ell: BlockELL, occupancy, q, kt, v, g, rowdot,
+                            *, act: str = "leaky_relu", slope: float = 0.2):
+    """K7b over a Block-ELL form and its ``tile_occupancy``; ``q`` [M,
+    dk], ``kt`` [dk, N], ``v`` [N, D], ``g`` [M, D] and ``rowdot`` [M]
+    carry logical shapes (nothing is padded)."""
+    return fused_attn_blockell_bwd_kernel(
+        ell.indices, occupancy, q, kt, v.contiguous(), g.contiguous(),
+        rowdot, block=(ell.bm, ell.bn), act=act, slope=slope)
+
+
 def fused_attn_blockcoo_ref(coo: BlockCOO, q, kt, v, *,
                             act: str = "leaky_relu",
                             slope: float = 0.2) -> torch.Tensor:

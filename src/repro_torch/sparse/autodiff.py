@@ -546,6 +546,38 @@ class SpMMEpilogue(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
+def _attention_backward_k7b(ctx, g: torch.Tensor, need_q: bool,
+                            need_k: bool, need_v: bool):
+    """The fused attention's backward on the ell path over a Block-ELL form
+    at a score width below ``PATTERN_MIN_K``: K7b gives α, de and dq in
+    one launch (the score recompute, dα, the softmax JVP and dq, with no
+    other array in the block layout), then dk = deᵀ q and dV = αᵀ ḡ run on
+    N1 as in the composed rule.  Returns (dq, dk, dv)."""
+    vals, q, k, v, out = ctx.saved_tensors
+    path, a = ctx.path, ctx.a
+    rowdot = (g.float() * out.float()).sum(dim=-1)
+    alpha, de, dq = fat.fused_attn_blockell_bwd(
+        a.form("ell"), a.tile_occupancy(), q, k.T, v, g, rowdot,
+        act=ctx.act, slope=ctx.slope)
+    _record_vjp("attention", path, "vjp: fused attention backward (K7b)", a)
+    del rowdot
+    dq = dq.to(q.dtype) if need_q else None
+    dk = dv = None
+    if need_k:
+        de_mat = single_form(a, "ell", de.to(vals.dtype))
+        dk = spmm_exec(path, de_mat.T, q.contiguous()).to(k.dtype)
+        _record_vjp("spmm", path, "vjp: dk = (P ⊙ de)ᵀ q (fused attn "
+                    "backward is spmm)", a)
+        del de_mat
+    del de
+    if need_v:
+        alpha_mat = single_form(a, "ell", alpha.to(vals.dtype))
+        dv = spmm_exec(path, alpha_mat.T, g).to(v.dtype)
+        _record_vjp("spmm", path, "vjp: dV = αᵀ ḡ (fused attn backward "
+                    "is spmm)", a)
+    return dq, dk, dv
+
+
 class FusedAttention(torch.autograd.Function):
     """The one-pass graph attention (K7 / K8 on the card); inputs
     ``(path, a, vals, q, k, v, act, slope)``.
@@ -562,7 +594,11 @@ class FusedAttention(torch.autograd.Function):
       * dq = (P ⊙ de) k and dk = (P ⊙ de)ᵀ q — the SDDMM backward's two
         SpMMs; dV = αᵀ ḡ — an SpMM on the transposed α.
 
-    A's values contribute their pattern only and get zero gradient."""
+    On the ell path over a Block-ELL form at a score width below
+    ``PATTERN_MIN_K`` the recompute, dα, the JVP and dq are one launch of
+    K7b (``_attention_backward_k7b``), which leaves only α and de in the
+    block layout; every other case runs the composition.  A's values
+    contribute their pattern only and get zero gradient."""
 
     @staticmethod
     def forward(ctx, path: str, a: SparseMatrix, vals: torch.Tensor,
@@ -583,8 +619,13 @@ class FusedAttention(torch.autograd.Function):
         if not (need_q or need_k or need_v):
             return None, None, dvals, dq, dk, dv, None, None
         form_name = form_read_by(a, path)
-        mask = vals != 0
         g = g.contiguous()
+        if (path == PATH_ELL and form_name == "ell"
+                and q.shape[1] < PATTERN_MIN_K):
+            dq, dk, dv = _attention_backward_k7b(ctx, g, need_q, need_k,
+                                                 need_v)
+            return None, None, dvals, dq, dk, dv, None, None
+        mask = vals != 0
         raw = sample_pattern_exec(path, a, q, k.T).float()
         _record_vjp("sddmm", path, "vjp: recompute e = act(q kᵀ) at pattern "
                     "(fused attn backward)", a)

@@ -71,7 +71,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bsattn import block_sparse_flash_attention
 from repro_torch.kernels.bsattn.kernel import bsattn_kernel, bsattn_ref
 from repro_torch.kernels.bsattn.ops import banded_ell
-from repro_torch.kernels.fused.attention import (fused_attn_blockell_kernel,
+from repro_torch.kernels.fused.attention import (fused_attn_blockell_bwd,
+                                                 fused_attn_blockell_bwd_kernel,
+                                                 fused_attn_blockell_kernel,
                                                  fused_attn_blockell_ref,
                                                  fused_attn_sell_kernel,
                                                  fused_attn_sell_operands,
@@ -1043,20 +1045,21 @@ RULES = ["spmm", "sddmm", "epilogue", "attention"]
 # the kernels a rule's backward launches on each path when every input,
 # A's values included, needs a gradient: the transposed products (dH, dC,
 # dk, dV) on N1 (ell) or K2 over Aᵀ's row view (sell); on the ell path dA
-# at K = 128 and dα are sampled at A's pattern (K3p), the score recompute
-# at K = 2 on every cell (K3)
+# at K = 128 is sampled at A's pattern (K3p), and the attention's score
+# recompute, dα, softmax JVP and dq at dk = 2 are one K7b launch
 BACKWARD_LAUNCHES = {
     ("spmm", "ell"): {"K3p": 1, "N1": 1}, ("spmm", "sell"): {"K4": 1,
                                                              "K2": 1},
     ("sddmm", "ell"): {"K1": 1, "N1": 1}, ("sddmm", "sell"): {"K2": 2},
     ("epilogue", "ell"): {"K3p": 1, "N1": 1},
     ("epilogue", "sell"): {"K4": 1, "K2": 1},
-    ("attention", "ell"): {"K3": 1, "K3p": 1, "K1": 1, "N1": 2},
+    ("attention", "ell"): {"K7b": 1, "N1": 2},
     ("attention", "sell"): {"K4": 2, "K2": 3},
 }
 BACKWARD_KERNELS = {"K1": spmm_blockell_kernel, "K2": spmm_sell_kernel,
                     "K3": sddmm_blockcoo_kernel, "K3p": sddmm_pattern_kernel,
-                    "K4": sddmm_sell_kernel, "N1": spmm_blockell_t_kernel}
+                    "K4": sddmm_sell_kernel, "N1": spmm_blockell_t_kernel,
+                    "K7b": fused_attn_blockell_bwd_kernel}
 
 
 def _rule_grads(device, kind, rule):
@@ -1111,6 +1114,70 @@ def test_backward_on_card_matches_cpu(dev, kind, rule):
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5,
                                    msg=f"{rule} {kind} input {i}")
+
+
+# ---------------------------------------------------------------------------
+# K7b, the fused attention's backward chain over a Block-ELL pattern
+# ---------------------------------------------------------------------------
+
+
+def _k7b_case(dev, sparsity, block, d, dk, act="leaky_relu",
+              dtype=torch.float32, m=301, n=277):
+    """K7b's operands on the card, with an all-padding block-row, empty
+    rows and padded slots: (ell, occupancy, q, kt, v, g, rowdot), kt a
+    transposed view of k as the rule hands it over."""
+    bm = block[0]
+    dense = _sparse(d + dk + bm, m, n, 1.0 - sparsity)
+    dense[bm:2 * bm] = 0.0
+    dense[[3, m - 1]] = 0.0
+    dense[0, 1] = 1.0
+    a = SparseMatrix.from_dense(dense, formats=("ell",), block=block,
+                                device=dev)
+    rng = np.random.default_rng(d * 10 + dk)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    q, k, v, g = normal(m, dk), normal(n, dk), normal(n, d), normal(m, d)
+    rowdot = normal(m).float()
+    return a.form("ell"), a.tile_occupancy(), q, k.T, v, g, rowdot
+
+
+@pytest.mark.parametrize("dk", [1, 2, 8])
+@pytest.mark.parametrize("d", [2, 16, 128, 130])
+@pytest.mark.parametrize("block", [(64, 64), (32, 64), (5, 7)])
+@pytest.mark.parametrize("sparsity", [0.5, 0.9, 0.99])
+def test_k7b_matches_plain(dev, sparsity, block, d, dk):
+    """K7b against its plain version on the CPU; α and de exactly 0 off
+    the pattern; two launches equal bit for bit."""
+    ell, occ, *ops = _k7b_case(dev, sparsity, block, d, dk)
+    before = fused_attn_blockell_bwd_kernel.launches
+    got = fused_attn_blockell_bwd(ell, occ, *ops)
+    again = fused_attn_blockell_bwd(ell, occ, *ops)
+    assert fused_attn_blockell_bwd_kernel.launches == before + 2
+    want = fused_attn_blockell_bwd_kernel(
+        ell.indices.cpu(), occ.cpu(), *(t.cpu() for t in ops),
+        block=(ell.bm, ell.bn))
+    dead = ell.blocks == 0
+    for name, x, y, w in zip(("alpha", "de", "dq"), got, again, want):
+        assert torch.equal(x, y), f"{name}: two launches differ"
+        torch.testing.assert_close(x.cpu(), w, **TOL, msg=name)
+    assert not got[0][dead].any() and not got[1][dead].any()
+
+
+@pytest.mark.parametrize("act", ["identity", "relu", "leaky_relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7b_acts_and_operands(dev, act, dtype):
+    """Every edge activation, and bf16 operands (widened to f32 exactly
+    before the launch, as the plain version widens them)."""
+    ell, occ, *ops = _k7b_case(dev, 0.9, (64, 64), 128, 2, dtype=dtype)
+    got = fused_attn_blockell_bwd(ell, occ, *ops, act=act, slope=0.2)
+    want = fused_attn_blockell_bwd_kernel(
+        ell.indices.cpu(), occ.cpu(), *(t.cpu() for t in ops),
+        block=(ell.bm, ell.bn), act=act, slope=0.2)
+    for name, x, w in zip(("alpha", "de", "dq"), got, want):
+        torch.testing.assert_close(x.cpu(), w, **TOL, msg=f"{name} {act}")
 
 
 # ---------------------------------------------------------------------------
